@@ -11,6 +11,10 @@ def pytest_configure(config):
         "markers",
         "slow: long-running property/replay tests (deselect with "
         "-m 'not slow' for the fast CI job)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's CUDA kernels); skips "
+        "without one (-m cuda runs only these)")
 
 
 @pytest.fixture(scope="session")
