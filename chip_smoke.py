@@ -8,17 +8,20 @@ Phases, in order; any failure raises and the exit code is nonzero:
 1. device: the card's name and power limit (``nvidia-smi``);
 2. build: every ``src/repro_torch/kernels/*/csrc/*.cu``, one ``nvcc`` each,
    all at once, with the compiler's register / spill report;
-3. kernels: each CUDA kernel against its plain PyTorch version on the
-   card, at the serving path's shapes and at small shapes with every mask,
-   with TF32 off; then the kernel's time, the plain version's time and
-   one PyTorch library call's time (CUDA events, median of 30 launches
-   after warmup, L2 flushed between launches, host launch overhead kept
-   out of the span); then the reduced model with the kernels against the
-   same model on the plain path;
-4. serve: ``serve_real`` on full-width InternLM2-1.8B in bf16 through
-   Gateway -> ESGScheduler -> ClusterSim -> TorchExecutor, with the kernels'
-   launch counters set to 0 just before and read just after, and the
-   run's invariants asserted;
+3. kernels: each CUDA kernel (flash-attention, flash-decode, WKV6)
+   against its plain PyTorch version on the card, at the serving paths'
+   shapes and at small shapes with every mask, padding tail and head dim,
+   with TF32 off; then the kernel's time, the plain version's time and,
+   where one exists, one PyTorch library call's time (CUDA events, median
+   of 30 launches after warmup, L2 flushed between launches, host launch
+   overhead kept out of the span); then each reduced model (InternLM2,
+   RWKV6) with the kernels against the same model on the plain path;
+4. serve: ``serve_real`` on full-width InternLM2-1.8B and then on
+   full-width RWKV6-1.6B, both in bf16, through Gateway -> ESGScheduler ->
+   ClusterSim -> TorchExecutor, each with every kernel's launch counter set
+   to 0 just before and read just after, and the run's invariants
+   asserted: each kernel of the path launched once per layer per prefill
+   pass or decode step, every other kernel not at all;
 5. report: one JSON line of kernel numbers, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -39,13 +42,17 @@ ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 OUT = ROOT / "build" / "chip_smoke"
 
-# serving run: prompt 128, 16 generated tokens, the (1, 2, 4, 8) batch
+# serving runs: prompt 128, 16 generated tokens, the (1, 2, 4, 8) batch
 # lattice at quotas (1.0, 0.5), 24 mmpp requests, seed 0
 ARCH = "internlm2_1_8b"
+RWKV_ARCH = "rwkv6_1_6b"
 PROMPT_LEN, GEN_LEN = 128, 16
 BATCHES, QUOTAS = (1, 2, 4, 8), (1.0, 0.5)
 N_REQUESTS, SEED = 24, 0
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# WKV6: the reference's WKV_TOL (tests/test_realcompute.py) for float32,
+# the bf16 kernel tolerance for bf16
+WKV_TOL = {"float32": 5e-3, "bfloat16": 2e-2}
 MODEL_TOL = 1e-4    # reduced model, fp32, kernels vs plain path: logits
 SLEEP_CYCLES = 4_000_000   # ~2 ms of device time at H100 clocks
 
@@ -96,13 +103,22 @@ def bound(peaks, nbytes: float, flops: float, dtype: str) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def _err(torch, out, ref, tol: float) -> float:
-    err = float((out.float() - ref.float()).abs().max())
-    ok = torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol)
-    if not ok or not math.isfinite(err):
+def _err(torch, out, ref, tol: float) -> tuple:
+    """(max |out - ref|, margin) with atol = rtol = ``tol``; the margin is
+    max |out - ref| / (atol + rtol |ref|), the share of the allowed error
+    used (the check fails above 1)."""
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    margin = float((diff / (tol + tol * ref.float().abs())).max())
+    if not margin <= 1.0 or not math.isfinite(err):
         raise AssertionError(f"kernel disagrees with its plain version: "
-                             f"max abs err {err} > tol {tol}")
-    return err
+                             f"max abs err {err}, margin {margin} > 1 "
+                             f"(atol = rtol = {tol})")
+    return err, margin
+
+
+def _worst(a: tuple, b: tuple) -> tuple:
+    return max(a[0], b[0]), max(a[1], b[1])
 
 
 # ---------------------------------------------------------------------------
@@ -124,15 +140,15 @@ def check_flash_attention(torch, fa_ops, cfg) -> dict:
         return _err(torch, out, ref, TOL[str(dtype)[6:]])
 
     h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    main_err = 0.0
+    main = (0.0, 0.0)
     for dtype in (torch.bfloat16, torch.float32):
         for b in (1, 8):
-            err = case(b, PROMPT_LEN, PROMPT_LEN, h, kvh, d, dtype)
+            err, margin = case(b, PROMPT_LEN, PROMPT_LEN, h, kvh, d, dtype)
             log(f"[kernels] flash_attention B={b} S={PROMPT_LEN} H={h} "
                 f"KV={kvh} D={d} {str(dtype)[6:]}: max_abs_err={err:.3e} "
-                f"tol={TOL[str(dtype)[6:]]}")
+                f"margin={margin:.3f} tol={TOL[str(dtype)[6:]]}")
             if dtype == torch.bfloat16:
-                main_err = max(main_err, err)
+                main = _worst(main, (err, margin))
     small = [  # (b, sq, skv, h, kvh, d, masks)
         (2, 256, 256, 4, 2, 64, {}),
         (2, 256, 256, 4, 1, 64, {"window": 64}),
@@ -146,11 +162,18 @@ def check_flash_attention(torch, fa_ops, cfg) -> dict:
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for (b, sq, skv, hh, kk, dd, masks) in small:
-            err = case(b, sq, skv, hh, kk, dd, dtype, **masks)
+            err, margin = case(b, sq, skv, hh, kk, dd, dtype, **masks)
             log(f"[kernels] flash_attention B={b} Sq={sq} Skv={skv} H={hh} "
                 f"KV={kk} D={dd} {masks} {str(dtype)[6:]}: "
-                f"max_abs_err={err:.3e}")
-    return {"max_abs_err": main_err, "tol": TOL["bfloat16"]}
+                f"max_abs_err={err:.3e} margin={margin:.3f}")
+    return _check_row(main, TOL["bfloat16"])
+
+
+def _check_row(main: tuple, tol: float) -> dict:
+    """The main path's (bf16) agreement, as the kernels JSON line gives it:
+    the check is allclose(atol=tol, rtol=tol), passed iff margin <= 1."""
+    return {"max_abs_err": main[0], "margin": main[1], "atol": tol,
+            "rtol": tol}
 
 
 def check_flash_decode(torch, fd_ops, cfg) -> dict:
@@ -166,7 +189,7 @@ def check_flash_decode(torch, fd_ops, cfg) -> dict:
 
     h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     s_main = PROMPT_LEN + GEN_LEN
-    main_err = 0.0
+    main = (0.0, 0.0)
     for dtype in (torch.bfloat16, torch.float32):
         tol = TOL[str(dtype)[6:]]
         for b in (1, 8):
@@ -178,12 +201,12 @@ def check_flash_decode(torch, fd_ops, cfg) -> dict:
                 out = fd_ops.flash_decode_at(q, kc, vc, t)
                 ref = fd_ops.decode_ref(q, kc, vc, t=pos)
                 torch.cuda.synchronize()
-                err = _err(torch, out, ref, tol)
+                err, margin = _err(torch, out, ref, tol)
                 if dtype == torch.bfloat16:
-                    main_err = max(main_err, err)
+                    main = _worst(main, (err, margin))
                 log(f"[kernels] flash_decode_at B={b} S={s_main} H={h} "
                     f"KV={kvh} D={d} t={pos} {str(dtype)[6:]}: "
-                    f"max_abs_err={err:.3e} tol={tol}")
+                    f"max_abs_err={err:.3e} margin={margin:.3f} tol={tol}")
     small = [  # (b, h, kvh, s, d, t, masks)
         (2, 8, 2, 1024, 64, 1023, {}),
         (2, 8, 8, 1024, 128, 700, {}),
@@ -204,12 +227,12 @@ def check_flash_decode(torch, fd_ops, cfg) -> dict:
             out_at = fd_ops.flash_decode_at(q, kc, vc, t, **masks)
             out_static = fd_ops.flash_decode(q, kc, vc, t=pos, **masks)
             torch.cuda.synchronize()
-            e1 = _err(torch, out_at, ref, tol)
-            e2 = _err(torch, out_static, ref, tol)
+            err, margin = _worst(_err(torch, out_at, ref, tol),
+                                 _err(torch, out_static, ref, tol))
             log(f"[kernels] flash_decode(_at) B={b} H={hh} KV={kk} S={s} "
                 f"D={dd} t={pos} {masks} {str(dtype)[6:]}: "
-                f"max_abs_err={max(e1, e2):.3e}")
-    return {"max_abs_err": main_err, "tol": TOL["bfloat16"]}
+                f"max_abs_err={err:.3e} margin={margin:.3f}")
+    return _check_row(main, TOL["bfloat16"])
 
 
 def time_kernels(torch, fa_ops, fd_ops, cfg, peaks) -> dict:
@@ -273,13 +296,121 @@ def time_kernels(torch, fa_ops, fd_ops, cfg, peaks) -> dict:
     return rows
 
 
-def check_model(torch) -> float:
-    """Reduced InternLM2 in fp32 on the card: the kernel path against the
-    plain path, prefill and decode logits."""
+def _wkv6_inputs(torch, g, b, t, h, kd, dtype):
+    """r, k, v (B, T, H, K) in ``dtype``; lw = -exp(N(0, 1)), u = 0.5 N(0,
+    1) and a nonzero s0 ~ N(0, 1), in float32."""
+    def n(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    r, k, v = (n(b, t, h, kd).to(dtype) for _ in range(3))
+    return r, k, v, -torch.exp(n(b, t, h, kd)), 0.5 * n(h, kd), n(b, h, kd,
+                                                                  kd)
+
+
+def check_wkv6(torch, rw_ops, rcfg) -> dict:
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def case(r, k, v, lw, u, s0):
+        tol = WKV_TOL[str(r.dtype)[6:]]
+        y, s_fin = rw_ops.wkv6(r, k, v, lw, u, s0)
+        y_ref, s_ref = rw_ops.wkv6_ref(
+            *(x.transpose(1, 2) for x in (r, k, v, lw)), u, s0)
+        torch.cuda.synchronize()
+        return _worst(_err(torch, y, y_ref.transpose(1, 2), tol),
+                      _err(torch, s_fin, s_ref, tol))
+
+    h, kd = rcfg.n_heads, rcfg.d_head
+    main = (0.0, 0.0)
+    for dtype in (torch.bfloat16, torch.float32):
+        for b in (1, 8):
+            err, margin = case(*_wkv6_inputs(torch, g, b, PROMPT_LEN, h, kd,
+                                             dtype))
+            log(f"[kernels] wkv6 B={b} T={PROMPT_LEN} H={h} K=V={kd} "
+                f"{str(dtype)[6:]}: max_abs_err(y, s_fin)={err:.3e} "
+                f"margin={margin:.3f} tol={WKV_TOL[str(dtype)[6:]]}")
+            if dtype == torch.bfloat16:
+                main = _worst(main, (err, margin))
+    small = [  # (b, t, h, kd): padding tails, every head dim, one row
+        (2, 48, 2, 8), (2, 70, 2, 16), (1, 32, 1, 128), (2, 70, 4, 128),
+        (1, 96, 2, 64), (2, 40, 3, 32), (2, 1, 2, 16)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for (b, t, hh, kk) in small:
+            err, margin = case(*_wkv6_inputs(torch, g, b, t, hh, kk, dtype))
+            log(f"[kernels] wkv6 B={b} T={t} H={hh} K=V={kk} "
+                f"{str(dtype)[6:]}: max_abs_err={err:.3e} "
+                f"margin={margin:.3f}")
+        # strided inputs: every other head of a wider tensor
+        r, k, v, lw, u, s0 = _wkv6_inputs(torch, g, 2, 70, 4, 16, dtype)
+        err, margin = case(*(x[:, :, ::2] for x in (r, k, v, lw)), u[::2],
+                           s0[:, ::2])
+        log(f"[kernels] wkv6 strided B=2 T=70 H=2 of 4 K=V=16 "
+            f"{str(dtype)[6:]}: max_abs_err={err:.3e} margin={margin:.3f}")
+    return _check_row(main, WKV_TOL["bfloat16"])
+
+
+def wkv6_work(b: int, t: int, h: int, kd: int, esize: int) -> tuple:
+    """(bytes, fp32 operations) of one WKV6 call with K == V: the least
+    work of the function, not of the kernel's chunked algorithm.  Bytes:
+    r, k, v (``esize`` bytes), lw, u and s0 (float32) read once, y written
+    once in r's dtype and s_fin in float32.  Operations, per token and
+    head of the recurrence y_t = r_t (S + diag(u) k_t v_t^T),
+    S <- diag(exp(lw_t)) S + k_t v_t^T, a multiply, an add or an exp being
+    one: r_t S (2 K V), the decay and rank-1 update of S (3 K V), exp(lw_t)
+    (K) and the bonus (r_t u k_t) v_t (3 K + 2 V)."""
+    vd = kd
+    nbytes = (b * t * h * kd * (3 * esize + 4) + h * kd * 4
+              + 2 * b * h * kd * vd * 4 + b * t * h * vd * esize)
+    per_token = 5 * kd * vd + 4 * kd + 2 * vd
+    return nbytes, float(b * t * h * per_token)
+
+
+def time_wkv6(torch, rw_ops, rcfg, peaks) -> dict:
+    """WKV6 kernel / plain times at the prefill shapes of the largest
+    serving bucket and of batch 1, bf16 r/k/v as the model gives them.
+    Bound at the float32 rate: every term is fp32, as in the reference.
+    No single PyTorch call computes WKV6, so there is no library time."""
+    from repro_torch.models.rwkv6 import wkv6_chunked
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    h, kd = rcfg.n_heads, rcfg.d_head
+    rows = {}
+    for b in (max(BATCHES), 1):
+        r, k, v, lw, u, s0 = _wkv6_inputs(torch, g, b, PROMPT_LEN, h, kd,
+                                          torch.bfloat16)
+        args_t = [x.transpose(1, 2) for x in (r, k, v, lw)]
+        nbytes, ops = wkv6_work(b, PROMPT_LEN, h, kd, 2)
+        b_ms, b_by = bound(peaks, nbytes, ops, "float32")
+        rows[b] = {
+            "ms": time_ms(torch, lambda: rw_ops.wkv6(r, k, v, lw, u, s0)),
+            "plain_ms": time_ms(
+                torch, lambda: rw_ops.wkv6_ref(*args_t, u, s0)),
+            "chunked_ms": time_ms(
+                torch, lambda: wkv6_chunked(r, k, v, lw, u, s0)),
+            "library_ms": None,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bytes": nbytes, "operations": ops,
+            "shape": f"B={b} T={PROMPT_LEN} H={h} K=V={kd} bf16",
+        }
+        row = rows[b]
+        log(f"[timing] wkv6 {row['shape']}: " + " ".join(
+            f"{key}={row[key]:.4f}" for key in
+            ("ms", "plain_ms", "chunked_ms", "bound_ms"))
+            + f" bound_by={b_by} library_ms=None")
+    return rows
+
+
+def check_model(torch, arch: str, prefill_kernels: tuple,
+                decode_kernels: tuple) -> float:
+    """A reduced model in fp32 on the card: the kernel path against the
+    plain path, prefill (48 tokens) and 4 decode steps' logits.  The
+    parameters u, mu_* and w0 (RWKV6) get seeded noise, since at init u = 0
+    and mu = 0 would hide a wrong bonus term or token mix.  Over both
+    paths each of ``prefill_kernels`` must launch once per layer and each
+    of ``decode_kernels`` once per layer per step: the kernel path went
+    through them and the plain path did not."""
     from repro_torch.configs.registry import get_config, reduced
     from repro_torch.models.model import RunOptions, get_model
 
-    cfg = reduced(get_config(ARCH))
+    cfg = reduced(get_config(arch))
     f32 = torch.float32
     plain = get_model(cfg, RunOptions(param_dtype=f32, act_dtype=f32),
                       "cuda")
@@ -287,6 +418,13 @@ def check_model(torch) -> float:
                                      use_kernels=True), "cuda")
     params = plain.init(SEED)
     g = torch.Generator(device="cuda").manual_seed(4)
+    for name, x in params.items():
+        leaf = name.rsplit("/", 1)[-1]
+        if leaf in ("u", "w0") or leaf.startswith("mu"):
+            x.add_(0.5 * torch.randn(x.shape, generator=g, device="cuda",
+                                     dtype=x.dtype))
+    for fn in prefill_kernels + decode_kernels:
+        fn.launches = 0
     toks = torch.randint(0, cfg.vocab, (2, 52), generator=g, device="cuda")
     lp, cp = plain.prefill(params, {"tokens": toks[:, :48]}, max_len=52)
     lk, ck = kern.prefill(params, {"tokens": toks[:, :48]}, max_len=52)
@@ -299,7 +437,13 @@ def check_model(torch) -> float:
     if not err <= MODEL_TOL:
         raise AssertionError(f"reduced model: kernel path vs plain path "
                              f"logits differ by {err} > {MODEL_TOL}")
-    log(f"[kernels] reduced {ARCH} fp32, kernels vs plain path: "
+    want = [(fn, cfg.n_layers) for fn in prefill_kernels] + \
+        [(fn, cfg.n_layers * 4) for fn in decode_kernels]
+    for fn, n in want:
+        if fn.launches != n:
+            raise AssertionError(f"reduced {arch}: {fn.__name__} launched "
+                                 f"{fn.launches} times, want {n}")
+    log(f"[kernels] reduced {arch} fp32, kernels vs plain path: "
         f"max |logits diff| over prefill + 4 decode steps = {err:.3e} "
         f"(tol {MODEL_TOL})")
     return err
@@ -308,24 +452,26 @@ def check_model(torch) -> float:
 # ---------------------------------------------------------------------------
 # phase 4: serve
 # ---------------------------------------------------------------------------
-def serve(torch, fa_ops, fd_ops, cfg) -> dict:
+def serve(torch, arch: str, cfg, counters: dict, per_step: dict) -> dict:
+    """Serve ``arch`` at full width; ``counters`` maps every kernel's name
+    to its wrapper, ``per_step`` the kernels of this path to the executor
+    count they follow ("prefill_passes" or "decode_steps"): each launches
+    once per layer per pass or step, every other kernel not at all."""
     from repro_torch.launch.serve import serve_real
 
-    fa_ops.flash_attention.launches = 0
-    fd_ops.flash_decode_at.launches = 0
-    fd_ops.flash_decode.launches = 0
+    for fn in counters.values():
+        fn.launches = 0
     t0 = time.perf_counter()
-    bench = serve_real(arch=ARCH, reduced=False, dtype=torch.bfloat16,
+    bench = serve_real(arch=arch, reduced=False, dtype=torch.bfloat16,
                        device="cuda", n_requests=N_REQUESTS,
                        scenario="mmpp", seed=SEED, prompt_len=PROMPT_LEN,
                        gen_len=GEN_LEN, batches=BATCHES, quotas=QUOTAS,
-                       bench_out=str(OUT / "serve_bench.json"), log=log)
-    launches = {"flash_attention": fa_ops.flash_attention.launches,
-                "flash_decode_at": fd_ops.flash_decode_at.launches}
+                       bench_out=str(OUT / f"serve_bench_{arch}.json"),
+                       log=log)
+    launches = {name: fn.launches for name, fn in counters.items()}
     serve_s = time.perf_counter() - t0
 
     ex, tel = bench["executor"], bench["telemetry"]
-    n_layers = cfg.n_layers
     executed = sum(c["n_executed"] for c in bench["cells"])
     checks = {
         "every request answered or shed":
@@ -333,16 +479,23 @@ def serve(torch, fa_ops, fd_ops, cfg) -> dict:
         "one executor record per dispatched task":
             executed == ex["executed"] == bench["dispatched_tasks"] > 0,
         "post-warmup hit rate 1.0": ex["post_warmup_hit_rate"] == 1.0,
-        "every prefill through the flash_attention kernel":
-            launches["flash_attention"] == n_layers * ex["prefill_passes"] > 0,
-        "every decode step through the flash_decode kernel":
-            launches["flash_decode_at"] == n_layers * ex["decode_steps"] > 0,
+    }
+    for name in counters:
+        if name in per_step:
+            unit = per_step[name]
+            what = {"prefill_passes": "prefill",
+                    "decode_steps": "decode step"}[unit]
+            checks[f"every {what} through the {name} kernel"] = \
+                launches[name] == cfg.n_layers * ex[unit] > 0
+        else:
+            checks[f"no {name} launch"] = launches[name] == 0
+    checks.update({
         "logits finite": ex["nonfinite_passes"] == 0,
         "digest unchanged by the executor":
             bench["digest"]["with_executor"]
             == bench["digest"]["without_executor"],
-    }
-    log(f"[serve] {ARCH} full width bf16: {serve_s:.1f}s, "
+    })
+    log(f"[serve] {arch} full width bf16: {serve_s:.1f}s, "
         f"{tel['injected']} requests ({tel['completed']} done, "
         f"{tel['shed']} shed), {bench['dispatched_tasks']} tasks, "
         f"{ex['prefill_passes']} prefill passes, {ex['decode_steps']} "
@@ -363,8 +516,8 @@ def serve(torch, fa_ops, fd_ops, cfg) -> dict:
             f"{r['bound_fraction']:.4f}")
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
-        raise AssertionError(f"serve invariants failed: {failed}")
-    log(f"[serve] invariants hold: {list(checks)}")
+        raise AssertionError(f"{arch} serve invariants failed: {failed}")
+    log(f"[serve] {arch} invariants hold: {list(checks)}")
     return launches
 
 
@@ -409,17 +562,31 @@ def main() -> int:
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.rwkv6 import ops as rw_ops
     from repro_torch.launch.roofline import device_peaks
 
-    cfg = get_config(ARCH)
+    cfg, rcfg = get_config(ARCH), get_config(RWKV_ARCH)
     peaks = device_peaks(name)
     fa_chk = check_flash_attention(torch, fa_ops, cfg)
     fd_chk = check_flash_decode(torch, fd_ops, cfg)
+    wkv_chk = check_wkv6(torch, rw_ops, rcfg)
     timing = time_kernels(torch, fa_ops, fd_ops, cfg, peaks)
-    check_model(torch)
+    for b, row in time_wkv6(torch, rw_ops, rcfg, peaks).items():
+        timing[b]["wkv6"] = row
+    check_model(torch, ARCH, (fa_ops.flash_attention,),
+                (fd_ops.flash_decode_at,))
+    check_model(torch, RWKV_ARCH, (rw_ops.wkv6,), ())
 
-    # 4. serve
-    launches = serve(torch, fa_ops, fd_ops, cfg)
+    # 4. serve, each path with every counter at 0 just before it
+    counters = {"flash_attention": fa_ops.flash_attention,
+                "flash_decode_at": fd_ops.flash_decode_at,
+                "flash_decode": fd_ops.flash_decode,
+                "wkv6": rw_ops.wkv6}
+    launches = serve(torch, ARCH, cfg, counters,
+                     {"flash_attention": "prefill_passes",
+                      "flash_decode_at": "decode_steps"})
+    launches["wkv6"] = serve(torch, RWKV_ARCH, rcfg, counters,
+                             {"wkv6": "prefill_passes"})["wkv6"]
 
     # 5. report
     big = timing[max(BATCHES)]
@@ -430,12 +597,15 @@ def main() -> int:
              "src/repro/kernels/flash_attention/flash_attention.py:88"),
             ("flash_decode_at", fd_chk,
              "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
-             "src/repro/kernels/flash_decode/flash_decode.py:139")):
+             "src/repro/kernels/flash_decode/flash_decode.py:139"),
+            ("wkv6", wkv_chk,
+             "src/repro_torch/kernels/rwkv6/csrc/rwkv6.cu",
+             "src/repro/kernels/rwkv6/rwkv6.py:73")):
         r = big[kname]
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[kname], "max_abs_err": chk["max_abs_err"],
-            "tol": chk["tol"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "launches": launches[kname], **chk, "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"]})
     with open(OUT / "chip_smoke.json", "w") as f:

@@ -1,9 +1,10 @@
 """Measured-profile pipeline: time the real model over the lattice.
 
-Times the port's execution (via ``serving.executor.TorchExecutor``: CUDA
-flash-attention prefill + flash-decode steps) across the (batch-bucket,
-quota) lattice and emits a ``repro.measured_profile.v1`` JSON artifact
-that ``ProfileTable.from_measured`` loads in place of the zoo numbers.
+Times the port's execution (via ``serving.executor.TorchExecutor``: the
+arch's prefill and decode steps, on the CUDA kernels of its family) across
+the (batch-bucket, quota) lattice and emits a ``repro.measured_profile.v1``
+JSON artifact that ``ProfileTable.from_measured`` loads in place of the zoo
+numbers.
 
 Two cross-checks ride along in the artifact:
 

@@ -92,7 +92,8 @@ def analytic_memory_bytes(cfg, shape, n_chips: int) -> float:
              + AdamW m/v read+write fp32 (16B) + param write 2B  = 24 B/param
              + activations: ~10 residual-width passes + mlp/attn projections,
              x (fwd + bwd + remat fwd) = x3
-    prefill: params 2B + 1x activation pass + cache write
+    prefill: params 2B + 1x activation pass + cache write (for ssm the
+             fp32 state write, B H K V 4B per layer)
     decode:  params 2B + cache read/write + O(B*D) activations
     """
     p_local = cfg.n_params / n_chips
@@ -112,6 +113,9 @@ def analytic_memory_bytes(cfg, shape, n_chips: int) -> float:
         per_layer = (8 * d + 3 * (f_ if not cfg.n_experts else
                                   f_ * cfg.top_k) / 16 +
                      4 * cfg.n_kv_heads * cfg.d_head) * act
+        if cfg.family == "ssm":     # one fp32 WKV state per layer, no cache
+            state = b_loc * cfg.n_heads * cfg.d_head * cfg.d_head * 4 * l
+            return p_local * 2.0 + toks * per_layer * l + state
         cache = toks * 2 * cfg.n_kv_heads * cfg.d_head * act * l
         return p_local * 2.0 + toks * per_layer * l + cache / n_chips * 16
     # decode: weights + cache dominate

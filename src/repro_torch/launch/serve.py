@@ -4,7 +4,8 @@
 scenario arrivals enter via the Gateway, ESG_1Q plans batches against a
 *measured* profile table (``launch/profile_kernels``), and every
 dispatched task is executed for real by ``serving.executor.TorchExecutor``
-(CUDA flash-attention prefill + flash-decode steps).  ``--bench-out``
+(for InternLM2, CUDA flash-attention prefill and flash-decode steps; for
+``--arch rwkv6_1_6b``, the CUDA WKV6 kernel in prefill).  ``--bench-out``
 writes the predicted-vs-measured comparison.
 
 Emulate mode (the zoo of per-arch profiles on an emulated cluster) waits
@@ -13,6 +14,9 @@ item 4).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --real \
         --prompt-len 128 --gen-len 16 --n 24 --bench-out build/serve.json
+    PYTHONPATH=src python -m repro_torch.launch.serve --real \
+        --arch rwkv6_1_6b --reduced --device cpu --n 8 --prompt-len 8 \
+        --gen-len 2 --batches 1 2
 """
 from __future__ import annotations
 

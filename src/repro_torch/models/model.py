@@ -10,8 +10,8 @@ and the tests use:
     cache_specs(batch, max_len) / init_cache(batch, max_len)
 
 Batches are dicts: {"tokens": (B, S) int, ["prefix_embeds": (B, P, D)]}.
-The transformer families work; rwkv6 (ssm) and hymba (hybrid) raise
-NotImplementedError until their slices land (ROADMAP items 2 and 3).
+The transformer families and rwkv6 (ssm) work; hymba (hybrid) raises
+NotImplementedError until its slice lands (ROADMAP item 3).
 """
 from __future__ import annotations
 
@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.registry import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
 from repro_torch.models.transformer import RunOptions
 
 
@@ -37,10 +37,12 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _family_module(cfg: ModelConfig):
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family == "ssm":
+        return rwkv6
+    if cfg.family == "hybrid":
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP items 2 and 3)")
+            f"(ROADMAP item 3)")
     return transformer  # dense | vlm | audio (moe raises inside)
 
 

@@ -1,7 +1,9 @@
 """Real-compute execution bridge: batched serving on the card.
 
-``TorchExecutor`` runs the port's model (CUDA flash-attention prefill and
-flash-decode steps, through ``models/model.py``) behind the emulator's
+``TorchExecutor`` runs the port's model through ``models/model.py`` (for a
+transformer, CUDA flash-attention prefill and flash-decode steps; for
+RWKV6, the CUDA WKV6 kernel in prefill and the plain one-token recurrence
+in decode) behind the emulator's
 Gateway → autoscaler → ``ClusterSim`` dispatch path.  The emulator stays
 the timing and placement model; every dispatched task is additionally
 executed for real here, and the measured wall times check the emulator's
@@ -13,14 +15,16 @@ Design:
   the nearest ``batch_lattice`` bucket, so the shapes the device ever sees
   are the profile lattice itself.
 * **Cell cache** — each (arch, stage, batch-bucket, quota) key maps to a
-  cell that holds the bucket's preallocated KV cache and token buffers.
+  cell that holds the bucket's preallocated cache (KV cache, or RWKV6
+  states) and token buffers.
   A bucket's cell is built once (``compiles`` counts the builds, the
   counterpart of the reference's XLA compiles); after ``warmup()`` the
   hit rate is exactly 1.0.  Quota variants alias the bucket's cell, since
   quota is a pass count and not a shape.
 * **In-place decode** — prefill writes the cell's cache and each decode
-  step writes slot ``t`` with ``t`` on the device, so the decode loop
-  allocates no cache and never syncs with the host.
+  step updates it in place (a transformer writes slot ``t`` with ``t`` on
+  the device), so the decode loop allocates no cache and never syncs with
+  the host.
 * **Async dispatch** — ``submit()`` enqueues onto a single worker thread
   and returns a future; ``drain()`` collects the records.
 
@@ -62,7 +66,7 @@ class ExecRecord:
 
 @dataclasses.dataclass
 class _Cell:
-    """A bucket's preallocated buffers: prompt tokens, KV cache, next
+    """A bucket's preallocated buffers: prompt tokens, cache, next
     tokens."""
     tokens: torch.Tensor        # (bucket, prompt_len)
     cache: dict                 # from Model.init_cache(bucket, max_len)

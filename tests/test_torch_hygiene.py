@@ -66,7 +66,7 @@ def test_every_kernel_source_has_a_wrapper_and_a_plain_version():
         assert "Replaces the TPU kernel" in text   # the note of its origin
         assert "Bound on this card" in text
     assert {p.stem for p in PORT.glob("kernels/*/csrc/*.cu")} == {
-        "flash_attention", "flash_decode"}
+        "flash_attention", "flash_decode", "rwkv6"}
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):

@@ -174,7 +174,7 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
 def test_kernel_sources_are_found_and_hashed():
     from repro_torch.kernels import _build
     srcs = _build.sources()
-    assert set(srcs) == {"flash_attention", "flash_decode"}
+    assert set(srcs) == {"flash_attention", "flash_decode", "rwkv6"}
     for name in srcs:
         path = _build.library_path(name)
         assert path.parent == _build.BUILD_DIR
