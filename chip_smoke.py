@@ -11,11 +11,15 @@ Phases, in order; any failure raises and the exit code is nonzero:
 3. kernels: each CUDA kernel (flash-attention, flash-decode, WKV6)
    against its plain PyTorch version on the card, at the serving paths'
    shapes and at small shapes with every mask, padding tail and head dim,
-   with TF32 off; then the kernel's time, the plain version's time and,
-   where one exists, one PyTorch library call's time (CUDA events, median
-   of 30 launches after warmup, L2 flushed between launches, host launch
-   overhead kept out of the span); then each reduced model (InternLM2,
-   RWKV6) with the kernels against the same model on the plain path;
+   every q-tile route of the bf16 flash-attention and the float32 route,
+   and flash-decode's cluster edge cases (t = 0, empty blocks, S = 4096,
+   ring masks), with TF32 off; then the kernel's time, the plain
+   version's time and, where one exists, one PyTorch library call's time
+   (CUDA events, median of 30 launches after warmup, L2 flushed between
+   launches, host launch overhead kept out of the span), at the serving
+   shapes and at one long shape per attention kernel; then each reduced
+   model (InternLM2, RWKV6) with the kernels against the same model on the
+   plain path;
 4. serve: ``serve_real`` on full-width InternLM2-1.8B and then on
    full-width RWKV6-1.6B, both in bf16, through Gateway -> ESGScheduler ->
    ClusterSim -> TorchExecutor, each with every kernel's launch counter set
@@ -126,6 +130,8 @@ def _worst(a: tuple, b: tuple) -> tuple:
 # ---------------------------------------------------------------------------
 def check_flash_attention(torch, fa_ops, cfg) -> dict:
     g = torch.Generator(device="cuda").manual_seed(1)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = set()
 
     def case(b, sq, skv, h, kvh, d, dtype, **kw):
         q = torch.randn((b, sq, h, d), generator=g, device="cuda").to(dtype)
@@ -139,17 +145,35 @@ def check_flash_attention(torch, fa_ops, cfg) -> dict:
         torch.cuda.synchronize()
         return _err(torch, out, ref, TOL[str(dtype)[6:]])
 
+    def route(b, sq, skv, h, dtype) -> str:
+        """The bf16 kernel's (q tile, kv tile) for this launch (float32: the
+        FMA route)."""
+        if dtype != torch.bfloat16:
+            return "fma"
+        tile = fa_ops.choose_tiles(b, h, sq, skv, n_sm)
+        tiles.add(tile)
+        return f"tc q_tile={tile[0]} kv_tile={tile[1]}"
+
     h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     main = (0.0, 0.0)
     for dtype in (torch.bfloat16, torch.float32):
         for b in (1, 8):
             err, margin = case(b, PROMPT_LEN, PROMPT_LEN, h, kvh, d, dtype)
             log(f"[kernels] flash_attention B={b} S={PROMPT_LEN} H={h} "
-                f"KV={kvh} D={d} {str(dtype)[6:]}: max_abs_err={err:.3e} "
+                f"KV={kvh} D={d} {str(dtype)[6:]} "
+                f"{route(b, PROMPT_LEN, PROMPT_LEN, h, dtype)}: "
+                f"max_abs_err={err:.3e} "
                 f"margin={margin:.3f} tol={TOL[str(dtype)[6:]]}")
             if dtype == torch.bfloat16:
                 main = _worst(main, (err, margin))
+    # the 32-row q tile: the least batch at S = 256 whose 64-row grid falls
+    # short of the SMs and whose 32-row grid does not
+    b32 = -(-n_sm // (2 * 4 * h))
     small = [  # (b, sq, skv, h, kvh, d, masks)
+        (b32, 256, 256, h, kvh, d, {}),
+        (2, 200, 200, h, kvh, d, {}),                 # Sq not a multiple of 16
+        (1, 512, 512, h, kvh, d, {}),                 # 32-row q, 64-row kv
+        (1, 2048, 2048, h, kvh, d, {}),               # the long prompt
         (2, 256, 256, 4, 2, 64, {}),
         (2, 256, 256, 4, 1, 64, {"window": 64}),
         (1, 384, 384, 4, 2, 64, {"local_block": 128}),
@@ -164,8 +188,13 @@ def check_flash_attention(torch, fa_ops, cfg) -> dict:
         for (b, sq, skv, hh, kk, dd, masks) in small:
             err, margin = case(b, sq, skv, hh, kk, dd, dtype, **masks)
             log(f"[kernels] flash_attention B={b} Sq={sq} Skv={skv} H={hh} "
-                f"KV={kk} D={dd} {masks} {str(dtype)[6:]}: "
-                f"max_abs_err={err:.3e} margin={margin:.3f}")
+                f"KV={kk} D={dd} {masks} {str(dtype)[6:]} "
+                f"{route(b, sq, skv, hh, dtype)}: max_abs_err={err:.3e} "
+                f"margin={margin:.3f}")
+    want = {(q, kv) for q in fa_ops.Q_TILES for kv in fa_ops.KV_TILES}
+    if tiles != want:
+        raise AssertionError(f"bf16 (q tile, kv tile) routes checked: "
+                             f"{sorted(tiles)}, want all of {sorted(want)}")
     return _check_row(main, TOL["bfloat16"])
 
 
@@ -217,6 +246,16 @@ def check_flash_decode(torch, fd_ops, cfg) -> dict:
         (2, 4, 2, 64, 16, 40, {"window": 16}),
         (2, 4, 2, 64, 16, 29, {"local_block": 8}),
         (1, 16, 2, 100, 32, 250, {"window": 60, "local_block": 32}),
+        # a cache shorter than one cluster's chunks (a cluster of 2 blocks)
+        (2, h, kvh, 40, d, 39, {}),
+        # t = 20 at S = 144: 4 of the cluster's 5 blocks hold no valid slot
+        (1, h, kvh, s_main, d, 20, {}),
+        # S = 4096: every block walks 16 chunks
+        (8, h, kvh, 4096, d, 4095, {}),
+        # the ring masks over a full cluster, each block several chunks
+        (2, h, kvh, 1024, d, 3000, {"window": 300}),
+        (2, h, kvh, 1024, d, 2500, {"local_block": 256}),
+        (1, h, kvh, 1024, d, 1500, {"window": 700, "local_block": 512}),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype)[6:]]
@@ -236,17 +275,20 @@ def check_flash_decode(torch, fd_ops, cfg) -> dict:
 
 
 def time_kernels(torch, fa_ops, fd_ops, cfg, peaks) -> dict:
-    """Kernel / plain / library times at the largest serving bucket (and
-    at batch 1), bf16."""
+    """Kernel / plain / library times at the largest serving bucket and at
+    batch 1, bf16, and at one long shape per kernel: flash-attention at
+    B=1 S=2048 (bound by operations) and flash-decode at B=8 S=4096 (bound
+    by bytes, the cache larger than L2); then kernel / library times at
+    every bucket of the serving lattice (each takes its own tiles)."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(3)
     h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     bf = torch.bfloat16
     esize = 2
-    rows = {}
-    for b in (max(BATCHES), 1):
-        s = PROMPT_LEN
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def attention(b, s, plain=True):
         q = torch.randn((b, s, h, d), generator=g, device="cuda").to(bf)
         k = torch.randn((b, s, kvh, d), generator=g, device="cuda").to(bf)
         v = torch.randn((b, s, kvh, d), generator=g, device="cuda").to(bf)
@@ -254,17 +296,19 @@ def time_kernels(torch, fa_ops, fd_ops, cfg, peaks) -> dict:
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * esize
         flops = 4.0 * b * h * d * s * (s + 1) / 2     # causal pairs
         b_ms, b_by = bound(peaks, nbytes, flops, "bfloat16")
-        fa = {
+        return {
             "ms": time_ms(torch, lambda: fa_ops.flash_attention(q, k, v)),
-            "plain_ms": time_ms(
-                torch, lambda: fa_ops.flash_attention_oracle(q, k, v)),
+            **({"plain_ms": time_ms(
+                torch, lambda: fa_ops.flash_attention_oracle(q, k, v))}
+               if plain else {}),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True)),
             "bound_ms": b_ms, "bound_by": b_by,
+            "tiles": fa_ops.choose_tiles(b, h, s, s, n_sm),
             "shape": f"B={b} S={s} H={h} KV={kvh} D={d} bf16",
         }
-        s = PROMPT_LEN + GEN_LEN
-        pos = s - 1
+
+    def decode(b, s, pos, plain=True):
         qd = torch.randn((b, h, d), generator=g, device="cuda").to(bf)
         kc = torch.randn((b, s, kvh, d), generator=g, device="cuda").to(bf)
         vc = torch.randn((b, s, kvh, d), generator=g, device="cuda").to(bf)
@@ -276,23 +320,44 @@ def time_kernels(torch, fa_ops, fd_ops, cfg, peaks) -> dict:
         b_ms, b_by = bound(peaks, nbytes, flops, "bfloat16")
         fd = {
             "ms": time_ms(torch, lambda: fd_ops.flash_decode_at(qd, kc, vc, t)),
-            "plain_ms": time_ms(
-                torch, lambda: fd_ops.decode_ref(qd, kc, vc, t=t)),
+            **({"plain_ms": time_ms(
+                torch, lambda: fd_ops.decode_ref(qd, kc, vc, t=t))}
+               if plain else {}),
             "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                 qdt, kct, vct, attn_mask=mask, enable_gqa=True)),
             "bound_ms": b_ms, "bound_by": b_by,
             "shape": f"B={b} S={s} t={pos} H={h} KV={kvh} D={d} bf16",
         }
+        if not plain:
+            return fd, None
         fds = {"ms": time_ms(
             torch, lambda: fd_ops.flash_decode(qd, kc, vc, t=pos)),
             "shape": fd["shape"]}
-        rows[b] = {"flash_attention": fa, "flash_decode_at": fd,
-                   "flash_decode": fds}
-        for name, r in rows[b].items():
+        return fd, fds
+
+    # the method's floor: one launch of a one-element kernel, timed alike
+    tiny = torch.zeros(1, device="cuda")
+    rows = {"floor": {"one-element add_": {
+        "ms": time_ms(torch, lambda: tiny.add_(1)), "shape": "1 element"}}}
+    for b in (max(BATCHES), 1):
+        s = PROMPT_LEN + GEN_LEN
+        fd, fds = decode(b, s, s - 1)
+        rows[b] = {"flash_attention": attention(b, PROMPT_LEN),
+                   "flash_decode_at": fd, "flash_decode": fds}
+    rows["long"] = {"flash_attention": attention(1, 2048),
+                    "flash_decode_at": decode(max(BATCHES), 4096, 4095)[0]}
+    s = PROMPT_LEN + GEN_LEN
+    for b in BATCHES:
+        rows[f"lattice B={b}"] = {
+            "flash_attention": attention(b, PROMPT_LEN, plain=False),
+            "flash_decode_at": decode(b, s, s - 1, plain=False)[0]}
+    for key, row in rows.items():
+        for name, r in row.items():
             log(f"[timing] {name} {r['shape']}: " + " ".join(
                 f"{k}={r[k]:.4f}" for k in
                 ("ms", "plain_ms", "library_ms", "bound_ms") if k in r)
-                + (f" bound_by={r['bound_by']}" if "bound_by" in r else ""))
+                + (f" bound_by={r['bound_by']}" if "bound_by" in r else "")
+                + (f" tiles={r['tiles']}" if "tiles" in r else ""))
     return rows
 
 

@@ -2,12 +2,15 @@
 
 The model passes (B, S, H, D) activations; the CUDA kernel reads them
 through their strides, so no transposed copy is made.  A CUDA tensor
-launches the kernel in ``csrc/flash_attention.cu`` (or the call raises);
-a CPU tensor takes the plain version, :func:`flash_attention_oracle`.
+launches the kernel in ``csrc/flash_attention.cu`` (or the call raises):
+bfloat16 takes its tensor-core route, with its tiles chosen by
+:func:`choose_tiles`, and float32 its FMA route.  A CPU tensor takes the
+plain version, :func:`flash_attention_oracle`.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -16,10 +19,45 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 HEAD_DIMS = (16, 32, 64, 128)
+Q_TILES = (64, 32, 16)      # query rows per block of the bf16 route
+KV_TILES = (32, 64)         # K / V rows per tile of the bf16 route
+SHORT_KV = 256              # up to this many keys, 32-row K / V tiles
+FMA_TILES = (64, 64)        # the float32 route's fixed tiles
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = ([_P] * 4 + [_I] * 7 + [_L] * 12
+_ARGTYPES = ([_P] * 4 + [_I] * 9 + [_L] * 12
              + [ctypes.c_float] + [_I] * 4 + [_P])
+
+
+def choose_tiles(batch: int, heads: int, sq: int, skv: int,
+                 n_sm: int) -> tuple[int, int]:
+    """(query rows per block, K / V rows per tile) of the bf16 route.
+
+    The query tile is the largest of ``Q_TILES`` whose grid (batch x heads
+    x ceil(sq / tile) blocks) gives every one of ``n_sm`` SMs a block, else
+    the smallest, which gives the most blocks.  K / V tiles are 32 rows, in
+    a ring of 4, up to ``SHORT_KV`` keys, where a tile's latency sets the
+    pace, and 64 rows in a ring of 2 beyond (measured on the H100; PERF.md).
+    """
+    q_tile = Q_TILES[-1]
+    for tile in Q_TILES:
+        if batch * heads * -(-sq // tile) >= n_sm:
+            q_tile = tile
+            break
+    return q_tile, KV_TILES[0] if skv <= SHORT_KV else KV_TILES[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def rows_aligned(x: torch.Tensor) -> bool:
+    """Whether every row of ``x`` (the last dim) starts on a 16-byte
+    boundary, as the kernel's 16-byte copies need."""
+    return x.data_ptr() % 16 == 0 and all(
+        n == 1 or st * x.element_size() % 16 == 0
+        for n, st in zip(x.shape[:-1], x.stride()[:-1]))
 
 
 def flash_attention_oracle(q, k, v, **kw):
@@ -64,12 +102,23 @@ def flash_attention(q, k, v, *, causal=True, window=None, local_block=None,
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     if any(x.stride(-1) != 1 for x in (q, k, v)):
         raise ValueError("the last dim of q, k and v must be contiguous")
+    if q.dtype == torch.bfloat16:
+        if not all(rows_aligned(x) for x in (q, k, v)):
+            raise ValueError("the bf16 route copies 16-byte pieces: every "
+                             "row of q, k and v must start on a 16-byte "
+                             "boundary")
+        dev = q.device.index
+        if dev is None:
+            dev = torch.cuda.current_device()
+        tiles = choose_tiles(b, h, sq, skv, _sm_count(dev))
+    else:
+        tiles = FMA_TILES
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lib = _build.load("flash_attention")
     fn = lib.repro_flash_attention_fwd
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             _DTYPES[q.dtype], b, sq, skv, h, kvh, d,
+             _DTYPES[q.dtype], b, sq, skv, h, kvh, d, *tiles,
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
              *out.stride()[:3], 1.0 / math.sqrt(d), int(causal),
              window or 0, local_block or 0, int(q_offset),

@@ -12,30 +12,58 @@
 // every decode step with no host read of t (the job the TPU kernel's
 // scalar prefetch did).
 //
-// Design.  The Pallas kernel walks the cache sequentially with one program
-// per batch row.  Here the cache is split into 64-slot chunks, and one block
-// of 128 threads serves one (chunk, kv head, batch row) for all n_rep query
-// heads that read that kv head, so every cache byte is read once.  At B = 1
-// and 8 kv heads a block per (b, kv head) would fill 8 of 132 SMs; the split
-// gives S / 64 times as many blocks.  Each block writes its partial
-// (max, sum, weighted V) in fp32; a second kernel combines the partials of a
-// (b, head) with a logsumexp rescale, the combine of the reference's
-// sequence-sharded decode.  On a linear cache, chunks that lie wholly past t
-// write an empty partial without reading the cache.
-//
 // Bound on this card: per step it reads 2 B S KV D cache elements and does
 // about 4 B H S D flops, under one flop per byte, so it is bound by bytes
-// (HBM at 3.35 TB/s).  This first version loads one element per thread
-// access; 16-byte vector loads and keeping more chunks in flight per SM
-// are the next steps toward the bound.
+// (HBM at 3.35 TB/s).  At the serving shapes the cache is a few MB, so the
+// time goes to latency: the design keeps many loads in flight and launches
+// once.
+//
+// Design.  The Pallas kernel walks the cache sequentially with one program
+// per batch row.  Here the cache is cut into 32-slot chunks, and each
+// (b, kv head) gets one thread block cluster of C = min(8, chunks) blocks of
+// 128 threads along the chunk axis (at the serving cache of 144 slots,
+// 5 x 8 kv heads = 40 blocks at B = 1 and 320 at B = 8; 64 and 512 from
+// 225 slots up); longer caches are walked by the loop, not by more blocks.
+// Block `rank` walks chunks rank, rank + C, ... (on a linear cache only
+// those that start at or before t) with an online softmax for all n_rep
+// query heads of its kv head, so every cache byte is read once.  K and V
+// chunks move as 16-byte cp.async.cg copies (8 bf16 or 4 fp32 a thread)
+// into a ring of 2 chunk stages, the next chunk loading while this one is
+// used; the first is requested before t is read, so the read of t hides
+// under its latency.  A score is a dot product over the D / 8 (bf16)
+// lanes that hold one K row, reduced with shuffles.  The blocks' partial
+// (m, l, acc) stay in shared memory, and after a cluster barrier each
+// block combines a slice of the (head, d) outputs from every rank's
+// partials through distributed shared memory with a logsumexp rescale and
+// writes it: one launch, no partials in HBM.  A block with no valid slot
+// holds m = -1e30, l = 0, acc = 0.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int CH = 64;      // cache slots per split block
-constexpr int NT = 128;     // threads per split block
+constexpr int NT = 128;     // threads per block
+constexpr int MAX_CLUSTER = 8;
 constexpr float NEG_INF = -1e30f;
+// Cache slots per chunk and chunk stages in flight per block.  32 x 2 keeps
+// a block at 35 KB (bf16, D = 128), so six fit on an SM and a batch of 8
+// runs in one wave; on the H100 it was the fastest of 16-64 slots and 2-4
+// stages from S = 144 to S = 4096.
+constexpr int CH = 32, NSTAGE = 2;
+
+__device__ __forceinline__ int floordiv(int a, int b) {
+  int q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+__device__ __forceinline__ int pymod(int a, int b) {
+  int r = a % b;
+  return r < 0 ? r + b : r;
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -50,14 +78,19 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ int floordiv(int a, int b) {
-  int q = a / b;
-  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
 }
-
-__device__ __forceinline__ int pymod(int a, int b) {
-  int r = a % b;
-  return r < 0 ? r + b : r;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 struct Params {
@@ -66,10 +99,7 @@ struct Params {
   const void* v;
   void* o;
   const int* t;
-  float* part_m;    // (B, H, NS)
-  float* part_l;    // (B, H, NS)
-  float* part_acc;  // (B, H, NS, D)
-  int s, heads, n_rep, ns;
+  int s, n_rep, nch;
   long long q_sb, q_sh;
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -88,133 +118,217 @@ __device__ __forceinline__ bool slot_valid(const Params& p, int slot, int t) {
   return ok;
 }
 
+// Shared memory of one block: the K / V stage ring, then fp32 q (pre-scaled),
+// acc, scores and the per-head m, l and rescale factor.
 template <typename T, int D>
-__global__ void __launch_bounds__(NT) fd_split_kernel(Params p) {
-  constexpr int PER_LANE = (D + 31) / 32;
-  const int j = blockIdx.x;   // chunk
+__host__ __device__ constexpr int ring_bytes() {
+  return NSTAGE * 2 * CH * D * static_cast<int>(sizeof(T));
+}
+template <typename T, int D>
+int smem_bytes(int n_rep) {
+  return ring_bytes<T, D>() + 4 * n_rep * (2 * D + CH + 3);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(NT) fd_cluster_kernel(Params p) {
+  constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // elements a copy
+  constexpr int LPS = D / VEC;   // lanes per K row (2 .. 32)
+  constexpr int SPP = NT / LPS;  // rows per pass of the block
+  constexpr int PIECES = CH * LPS;
+  constexpr int PER_LANE = (CH + 31) / 32;  // softmax slots per lane
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* sk = reinterpret_cast<T*>(smem_raw);  // NSTAGE x CH x D
+  T* sv = sk + NSTAGE * CH * D;            // NSTAGE x CH x D
+  const int n_rep = p.n_rep;
+  float* sq = reinterpret_cast<float*>(smem_raw +
+                                       ring_bytes<T, D>());
+  float* sacc = sq + n_rep * D;    // n_rep x D
+  float* ss = sacc + n_rep * D;    // n_rep x CH, scores then weights
+  float* sm = ss + n_rep * CH;     // n_rep running maxima
+  float* sl = sm + n_rep;          // n_rep running sums
+  float* sa = sl + n_rep;          // n_rep rescale factors of this chunk
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ncl = static_cast<int>(cluster.num_blocks());
   const int g = blockIdx.y;   // kv head
   const int b = blockIdx.z;   // batch row
-  const int n_rep = p.n_rep;
   const int h0 = g * n_rep;
-  const int s0 = j * CH;
-  const int n = min(CH, p.s - s0);
-  const int t = *p.t;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long pb = (static_cast<long long>(b) * p.heads + h0) * p.ns + j;
-
+  const int tid = threadIdx.x;
   const bool ring = p.window > 0 || p.local_block > 0;
-  if (!ring && t >= 0 && s0 > t) {  // chunk wholly past t: empty partial
-    for (int r = tid; r < n_rep; r += NT) {
-      p.part_m[pb + r * p.ns] = NEG_INF;
-      p.part_l[pb + r * p.ns] = 0.f;
-    }
-    for (int i = tid; i < n_rep * D; i += NT)
-      p.part_acc[(pb + (i / D) * p.ns) * D + i % D] = 0.f;
-    return;
-  }
 
-  extern __shared__ float sm[];
-  float* sq = sm;               // n_rep x D, pre-scaled queries
-  float* ss = sq + n_rep * D;   // n_rep x CH, scores then probabilities
-  float* sv = ss + n_rep * CH;  // CH x D, the chunk's V rows
+  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + g * p.k_sh;
+  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + g * p.v_sh;
+  auto load_chunk = [&](int i, int stage) {  // slots past S are zeroed
+    const int c0 = (rank + i * ncl) * CH;
+    T* dk = sk + stage * CH * D;
+    T* dv = sv + stage * CH * D;
+#pragma unroll
+    for (int x0 = 0; x0 < PIECES; x0 += NT) {
+      const int x = x0 + tid;
+      if (PIECES % NT != 0 && x >= PIECES) break;
+      const int r = x / LPS, c = (x % LPS) * VEC, slot = c0 + r;
+      const bool ok = slot < p.s;
+      cp_async16(dk + r * D + c, ok ? kg + slot * p.k_ss + c : kg, ok);
+      cp_async16(dv + r * D + c, ok ? vg + slot * p.v_ss + c : vg, ok);
+    }
+  };
+  // the first chunks are requested before t is known, so the read of t
+  // overlaps their latency; on a linear cache the chunks that start past t
+  // are then skipped (their copies land unused)
+  const int all = rank < p.nch ? (p.nch - rank + ncl - 1) / ncl : 0;
+#pragma unroll
+  for (int i = 0; i < NSTAGE - 1; ++i) {
+    if (i < all) load_chunk(i, i);
+    cp_async_commit();
+  }
+  const int t = *p.t;
+  const int nch = (!ring && t >= 0) ? min(p.nch, t / CH + 1) : p.nch;
+  const int mine = rank < nch ? (nch - rank + ncl - 1) / ncl : 0;
 
   const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h0 * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + g * p.k_sh +
-                s0 * p.k_ss;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + g * p.v_sh +
-                s0 * p.v_ss;
-  for (int i = tid; i < n_rep * D; i += NT)
+  for (int i = tid; i < n_rep * D; i += NT) {
     sq[i] = to_f(qg[(i / D) * p.q_sh + i % D]) * p.scale;
-  for (int i = tid; i < n * D; i += NT)
-    sv[i] = to_f(vg[(i / D) * p.v_ss + i % D]);
-  __syncthreads();
+    sacc[i] = 0.f;
+  }
+  for (int r = tid; r < n_rep; r += NT) {
+    sm[r] = NEG_INF;
+    sl[r] = 0.f;
+  }
 
-  // scores: one warp per slot, lanes across D
-  for (int c = warp; c < n; c += NT / 32) {
-    float kv[PER_LANE];
+  const int lane = tid & 31, warp = tid >> 5;
+  for (int i = 0; i < mine; ++i) {
+    cp_async_wait<NSTAGE - 2>();  // chunk i has landed
+    __syncthreads();  // ... for every thread; chunk i - 1's readers are done
+    if (i + NSTAGE - 1 < mine)
+      load_chunk(i + NSTAGE - 1, (i + NSTAGE - 1) % NSTAGE);
+    cp_async_commit();
+    const T* ck = sk + (i % NSTAGE) * CH * D;
+    const T* cv = sv + (i % NSTAGE) * CH * D;
+    const int c0 = (rank + i * ncl) * CH;
+
+    // scores: LPS lanes per K row, VEC elements each, one 16-byte read; a
+    // row lies in one warp, so the guard below is warp-uniform
 #pragma unroll
-    for (int e = 0; e < PER_LANE; ++e) {
-      const int d = lane + 32 * e;
-      kv[e] = d < D ? to_f(kg[c * p.k_ss + d]) : 0.f;
+    for (int pass = 0; pass < (CH + SPP - 1) / SPP; ++pass) {
+      const int r = tid / LPS + pass * SPP;
+      if (r >= CH) break;
+      const int d0 = (tid % LPS) * VEC;
+      const uint4 raw = *reinterpret_cast<const uint4*>(ck + r * D + d0);
+      const T* kv = reinterpret_cast<const T*>(&raw);
+      float kf[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) kf[e] = to_f(kv[e]);
+      const int slot = c0 + r;
+      const bool ok = slot < p.s && slot_valid(p, slot, t);
+      for (int h = 0; h < n_rep; ++h) {
+        const float* qh = sq + h * D + d0;
+        float a = 0.f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) a = fmaf(qh[e], kf[e], a);
+#pragma unroll
+        for (int off = LPS / 2; off > 0; off >>= 1)
+          a += __shfl_xor_sync(0xffffffffu, a, off);
+        // masked: -1e30 (weight 1 while every slot so far is masked, as in
+        // a softmax over all -1e30 scores); past S: no weight at all
+        if (tid % LPS == 0)
+          ss[h * CH + r] = slot >= p.s ? -INFINITY : (ok ? a : NEG_INF);
+      }
     }
-    const bool ok = slot_valid(p, s0 + c, t);
-    for (int r = 0; r < n_rep; ++r) {
-      float a = 0.f;
+    __syncthreads();
+
+    // online softmax: one warp per query head, lanes over the chunk
+    for (int h = warp; h < n_rep; h += NT / 32) {
+      float x[PER_LANE];
+      float mx = -INFINITY;
 #pragma unroll
-      for (int e = 0; e < PER_LANE; ++e) {
-        const int d = lane + 32 * e;
-        if (d < D) a = fmaf(sq[r * D + d], kv[e], a);
+      for (int u = 0; u < PER_LANE; ++u) {
+        const int c = lane + 32 * u;
+        x[u] = c < CH ? ss[h * CH + c] : -INFINITY;
+        mx = fmaxf(mx, x[u]);
       }
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
-        a += __shfl_xor_sync(0xffffffffu, a, off);
-      if (lane == 0) ss[r * CH + c] = ok ? a : NEG_INF;
-    }
-  }
-  __syncthreads();
-
-  // chunk softmax statistics: one warp per query head
-  for (int r = warp; r < n_rep; r += NT / 32) {
-    float mx = NEG_INF;
-    for (int c = lane; c < n; c += 32) mx = fmaxf(mx, ss[r * CH + c]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_old = sm[h];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float sum = 0.f;
-    for (int c = lane; c < n; c += 32) {
-      const float e = expf(ss[r * CH + c] - mx);
-      ss[r * CH + c] = e;
-      sum += e;
-    }
+      for (int u = 0; u < PER_LANE; ++u) {
+        const int c = lane + 32 * u;
+        const float e = expf(x[u] - m_new);
+        if (c < CH) ss[h * CH + c] = e;
+        sum += e;
+      }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) {
-      p.part_m[pb + r * p.ns] = mx;
-      p.part_l[pb + r * p.ns] = sum;
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        sa[h] = alpha;
+        sl[h] = sl[h] * alpha + sum;
+        sm[h] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // acc = alpha acc + sum_c w_c V_c: one thread per (head, d)
+    for (int i2 = tid; i2 < n_rep * D; i2 += NT) {
+      const int h = i2 / D, d = i2 % D;
+      const float* w = ss + h * CH;
+      float a = sacc[i2] * sa[h];
+#pragma unroll
+      for (int c = 0; c < CH; ++c) a = fmaf(w[c], to_f(cv[c * D + d]), a);
+      sacc[i2] = a;
     }
   }
-  __syncthreads();
+  cp_async_wait<0>();
 
-  // weighted V: one thread per (head, d)
-  for (int i = tid; i < n_rep * D; i += NT) {
-    const int r = i / D, d = i % D;
-    float a = 0.f;
-    for (int c = 0; c < n; ++c) a = fmaf(ss[r * CH + c], sv[c * D + d], a);
-    p.part_acc[(pb + r * p.ns) * D + d] = a;
+  // combine the cluster's partials: block `rank` takes every ncl-th
+  // (head, d) entry and reads each rank's m, l and acc remotely
+  cluster.sync();
+  T* og = static_cast<T*>(p.o) + b * p.o_sb + h0 * p.o_sh;
+  for (int i2 = rank * NT + tid; i2 < n_rep * D; i2 += ncl * NT) {
+    const int h = i2 / D, d = i2 % D;
+    float mg = NEG_INF;
+    for (int j = 0; j < ncl; ++j)
+      mg = fmaxf(mg, cluster.map_shared_rank(sm, j)[h]);
+    float lg = 0.f, ag = 0.f;
+    for (int j = 0; j < ncl; ++j) {
+      const float c = expf(cluster.map_shared_rank(sm, j)[h] - mg);
+      lg = fmaf(cluster.map_shared_rank(sl, j)[h], c, lg);
+      ag = fmaf(cluster.map_shared_rank(sacc, j)[i2], c, ag);
+    }
+    og[h * p.o_sh + d] = from_f<T>(ag / fmaxf(lg, 1e-30f));
   }
+  cluster.sync();  // no block leaves while another still reads its memory
 }
 
 template <typename T, int D>
-__global__ void fd_combine_kernel(Params p) {
-  const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
-  const long long base = (static_cast<long long>(b) * p.heads + h) * p.ns;
-  float mg = NEG_INF;
-  for (int j = 0; j < p.ns; ++j) mg = fmaxf(mg, p.part_m[base + j]);
-  float lg = 0.f, ag = 0.f;
-  for (int j = 0; j < p.ns; ++j) {
-    const float c = expf(p.part_m[base + j] - mg);
-    lg = fmaf(p.part_l[base + j], c, lg);
-    ag = fmaf(p.part_acc[(base + j) * D + d], c, ag);
-  }
-  T* og = static_cast<T*>(p.o) + b * p.o_sb + h * p.o_sh;
-  og[d] = from_f<T>(ag / fmaxf(lg, 1e-30f));
-}
-
-template <typename T, int D>
-int launch(const Params& p, int batch, int kv_heads, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(float)) *
-                   (p.n_rep * D + p.n_rep * CH + CH * D);
+int launch(Params p, int batch, int kv_heads, cudaStream_t stream) {
+  auto kernel = fd_cluster_kernel<T, D>;
+  const int smem = smem_bytes<T, D>(p.n_rep);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        fd_split_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  fd_split_kernel<T, D><<<dim3(p.ns, kv_heads, batch), NT, smem, stream>>>(p);
-  cudaError_t err = cudaGetLastError();
+  p.nch = (p.s + CH - 1) / CH;
+  const int ncl = p.nch < MAX_CLUSTER ? p.nch : MAX_CLUSTER;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ncl, kv_heads, batch);
+  cfg.blockDim = dim3(NT, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ncl;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fd_combine_kernel<T, D><<<dim3(p.heads, batch), D, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -234,16 +348,13 @@ int dispatch_d(const Params& p, int d, int batch, int kv_heads,
 
 extern "C" {
 
-// Number of 64-slot chunks, for sizing the partial buffers.
-int repro_flash_decode_num_splits(int s) { return (s + CH - 1) / CH; }
-
 // dtype: 0 = float32, 1 = bfloat16.  Strides are in elements; t points to
-// one int32 on the device.  part_m / part_l hold B * H * num_splits floats,
-// part_acc B * H * num_splits * D.
+// one int32 on the device.  K and V move as 16-byte copies, so their
+// pointers and slot / head / batch strides must be multiples of 16 bytes
+// (the wrapper checks).
 int repro_flash_decode_fwd(
     const void* q, const void* k, const void* v, void* o, const void* t,
-    void* part_m, void* part_l, void* part_acc, int dtype,
-    int batch, int s, int heads, int kv_heads, int d,
+    int dtype, int batch, int s, int heads, int kv_heads, int d,
     long long q_sb, long long q_sh,
     long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh,
@@ -253,9 +364,7 @@ int repro_flash_decode_fwd(
       batch > 65535 || kv_heads > 65535 || heads > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, o, static_cast<const int*>(t),
-           static_cast<float*>(part_m), static_cast<float*>(part_l),
-           static_cast<float*>(part_acc),
-           s, heads, heads / kv_heads, (s + CH - 1) / CH,
+           s, heads / kv_heads, 0,
            q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh,
            scale, window, local_block};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

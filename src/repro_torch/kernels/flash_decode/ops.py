@@ -3,7 +3,8 @@
 ``flash_decode_at`` takes the position ``t`` as a one-element int32 tensor
 on the caches' device, so the decode loop never reads it on the host;
 ``flash_decode`` takes a Python int and is a thin wrapper over the same
-kernel.  A CUDA tensor launches the kernel in ``csrc/flash_decode.cu`` (or
+kernel.  A CUDA tensor launches the kernel in ``csrc/flash_decode.cu``,
+one clustered launch per call with nothing allocated but the output (or
 the call raises); a CPU tensor takes the plain version, ``decode_ref``.
 """
 from __future__ import annotations
@@ -19,8 +20,16 @@ from repro_torch.kernels.flash_decode.ref import decode_ref
 HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_ARGTYPES = ([_P] * 8 + [_I] * 6 + [_L] * 10
+_ARGTYPES = ([_P] * 5 + [_I] * 6 + [_L] * 10
              + [ctypes.c_float] + [_I] * 2 + [_P])
+
+
+def rows_aligned(x: torch.Tensor) -> bool:
+    """Whether every row of ``x`` (the last dim) starts on a 16-byte
+    boundary, as the kernel's 16-byte copies of the caches need."""
+    return x.data_ptr() % 16 == 0 and all(
+        n == 1 or st * x.element_size() % 16 == 0
+        for n, st in zip(x.shape[:-1], x.stride()[:-1]))
 
 
 def _check(q, k_cache, v_cache, t, window, local_block):
@@ -55,19 +64,15 @@ def _launch(q, k_cache, v_cache, t, window, local_block):
             or not t.is_contiguous()):
         raise ValueError("the last dim of q and the caches, and t, must be "
                          "contiguous")
+    if not (rows_aligned(k_cache) and rows_aligned(v_cache)):
+        raise ValueError("the kernel copies 16-byte pieces: every row of "
+                         "the caches must start on a 16-byte boundary")
     lib = _build.load("flash_decode")
-    lib.repro_flash_decode_num_splits.argtypes = [_I]
-    ns = lib.repro_flash_decode_num_splits(s)
     out = torch.empty((b, h, d), dtype=q.dtype, device=q.device)
-    part_m = torch.empty((b, h, ns), dtype=torch.float32, device=q.device)
-    part_l = torch.empty_like(part_m)
-    part_acc = torch.empty((b, h, ns, d), dtype=torch.float32,
-                           device=q.device)
     fn = lib.repro_flash_decode_fwd
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     err = fn(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-             out.data_ptr(), t.data_ptr(), part_m.data_ptr(),
-             part_l.data_ptr(), part_acc.data_ptr(), _DTYPES[q.dtype],
+             out.data_ptr(), t.data_ptr(), _DTYPES[q.dtype],
              b, s, h, kvh, d, *q.stride()[:2], *k_cache.stride()[:3],
              *v_cache.stride()[:3], *out.stride()[:2], 1.0 / math.sqrt(d),
              window or 0, local_block or 0,
