@@ -19,13 +19,17 @@ Phases, in order; any failure raises and the exit code is nonzero:
    launches, host launch overhead kept out of the span), at the serving
    shapes and at one long shape per attention kernel; then each reduced
    model (InternLM2, RWKV6) with the kernels against the same model on the
-   plain path;
-4. serve: ``serve_real`` on full-width InternLM2-1.8B and then on
-   full-width RWKV6-1.6B, both in bf16, through Gateway -> ESGScheduler ->
-   ClusterSim -> TorchExecutor, each with every kernel's launch counter set
-   to 0 just before and read just after, and the run's invariants
-   asserted: each kernel of the path launched once per layer per prefill
-   pass or decode step, every other kernel not at all;
+   plain path, and the reduced Hymba (which runs no kernel, as in the
+   reference) on the card against the same model on the CPU, at a prompt
+   wider than its window (a rolled ring) and one narrower (the reference's
+   prompt-wide ring);
+4. serve: ``serve_real`` on full-width InternLM2-1.8B, then on full-width
+   RWKV6-1.6B, then on full-width Hymba-1.5B, all in bf16, through
+   Gateway -> ESGScheduler -> ClusterSim -> TorchExecutor, each with every
+   kernel's launch counter set to 0 just before and read just after, and
+   the run's invariants asserted: each kernel of the path launched once
+   per layer per prefill pass or decode step, every other kernel (for
+   Hymba, every kernel) not at all;
 5. report: one JSON line of kernel numbers, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -50,6 +54,7 @@ OUT = ROOT / "build" / "chip_smoke"
 # lattice at quotas (1.0, 0.5), 24 mmpp requests, seed 0
 ARCH = "internlm2_1_8b"
 RWKV_ARCH = "rwkv6_1_6b"
+HYMBA_ARCH = "hymba_1_5b"
 PROMPT_LEN, GEN_LEN = 128, 16
 BATCHES, QUOTAS = (1, 2, 4, 8), (1.0, 0.5)
 N_REQUESTS, SEED = 24, 0
@@ -514,6 +519,58 @@ def check_model(torch, arch: str, prefill_kernels: tuple,
     return err
 
 
+def check_hybrid_on_card(torch, arch: str) -> float:
+    """The reduced Hymba in fp32 on the card against the same model on the
+    CPU, the parameters initialised once and copied, with seeded noise on
+    d_skip, b_dt, a_log and the four norm scales (their init values would
+    hide a wrong skip, dt or fusion term): prefill and 4 decode steps'
+    logits and the final caches, at S = 48 (wider than the window of 32,
+    so the ring is rolled) and S = 16 (narrower: the reference's
+    prompt-wide ring, whose decode evicts positions inside the window)."""
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.models.model import RunOptions, get_model
+
+    cfg = reduced(get_config(arch))
+    f32 = torch.float32
+    opts = RunOptions(param_dtype=f32, act_dtype=f32)
+    card, host = get_model(cfg, opts, "cuda"), get_model(cfg, opts, "cpu")
+    params = card.init(SEED)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    for name, x in params.items():
+        if name.rsplit("/", 1)[-1] in (
+                "d_skip", "b_dt", "a_log", "ln1_scale", "ln2_scale",
+                "fuse_attn_scale", "fuse_ssm_scale"):
+            x.add_(0.5 * torch.randn(x.shape, generator=g, device="cuda"))
+    host_params = {k: v.cpu() for k, v in params.items()}
+    worst = 0.0
+    for s in (48, 16):
+        toks = torch.randint(0, cfg.vocab, (2, s + 4), generator=g,
+                             device="cuda")
+        lc, cc = card.prefill(params, {"tokens": toks[:, :s]})
+        lh, ch = host.prefill(host_params, {"tokens": toks[:, :s].cpu()})
+        errs = [float((lc.cpu() - lh).abs().max())]
+        for i in range(s, s + 4):
+            lc, cc = card.decode(params, cc, toks[:, i:i + 1])
+            lh, ch = host.decode(host_params, ch, toks[:, i:i + 1].cpu())
+            errs.append(float((lc.cpu() - lh).abs().max()))
+        cache_err = max(float((cc[n].cpu() - ch[n]).abs().max())
+                        for n in ("k", "v", "ssm"))
+        ring = cc["k"].shape[2]
+        err = max(errs + [cache_err])
+        if not err <= MODEL_TOL or ring != min(s, cfg.window) or \
+                not int(cc["t"]) == int(ch["t"]) == s + 4:
+            raise AssertionError(
+                f"reduced {arch} S={s}: card vs CPU logits / caches differ "
+                f"by {err} (tol {MODEL_TOL}), ring {ring} slots, t "
+                f"{int(cc['t'])} vs {int(ch['t'])}")
+        log(f"[kernels] reduced {arch} fp32 S={s} (ring {ring} slots, "
+            f"window {cfg.window}), card vs CPU: max |logits diff| over "
+            f"prefill + 4 decode steps = {max(errs):.3e}, caches "
+            f"{cache_err:.3e} (tol {MODEL_TOL})")
+        worst = max(worst, err)
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 4: serve
 # ---------------------------------------------------------------------------
@@ -641,6 +698,7 @@ def main() -> int:
     check_model(torch, ARCH, (fa_ops.flash_attention,),
                 (fd_ops.flash_decode_at,))
     check_model(torch, RWKV_ARCH, (rw_ops.wkv6,), ())
+    check_hybrid_on_card(torch, HYMBA_ARCH)
 
     # 4. serve, each path with every counter at 0 just before it
     counters = {"flash_attention": fa_ops.flash_attention,
@@ -652,6 +710,8 @@ def main() -> int:
                       "flash_decode_at": "decode_steps"})
     launches["wkv6"] = serve(torch, RWKV_ARCH, rcfg, counters,
                              {"wkv6": "prefill_passes"})["wkv6"]
+    # Hymba runs no kernel, as in the reference: every counter stays at 0
+    serve(torch, HYMBA_ARCH, get_config(HYMBA_ARCH), counters, {})
 
     # 5. report
     big = timing[max(BATCHES)]

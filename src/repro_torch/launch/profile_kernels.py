@@ -1,7 +1,8 @@
 """Measured-profile pipeline: time the real model over the lattice.
 
 Times the port's execution (via ``serving.executor.TorchExecutor``: the
-arch's prefill and decode steps, on the CUDA kernels of its family) across
+arch's prefill and decode steps, on the CUDA kernels of its family; Hymba's
+path has none) across
 the (batch-bucket, quota) lattice and emits a ``repro.measured_profile.v1``
 JSON artifact that ``ProfileTable.from_measured`` loads in place of the zoo
 numbers.
@@ -19,6 +20,8 @@ CLI::
 
     PYTHONPATH=src python -m repro_torch.launch.profile_kernels \
         --arch internlm2_1_8b --out build/profile.json
+    PYTHONPATH=src python -m repro_torch.launch.profile_kernels \
+        --arch hymba_1_5b --out build/profile_hymba.json
 """
 from __future__ import annotations
 

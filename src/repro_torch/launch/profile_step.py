@@ -12,6 +12,8 @@ the timed ones; the kernel times are the device's.
         --out build/step_profile.json
     PYTHONPATH=src python -m repro_torch.launch.profile_step \
         --arch rwkv6_1_6b --batch 1 8
+    PYTHONPATH=src python -m repro_torch.launch.profile_step \
+        --arch hymba_1_5b --batch 1 8
 """
 from __future__ import annotations
 

@@ -5,7 +5,9 @@ scenario arrivals enter via the Gateway, ESG_1Q plans batches against a
 *measured* profile table (``launch/profile_kernels``), and every
 dispatched task is executed for real by ``serving.executor.TorchExecutor``
 (for InternLM2, CUDA flash-attention prefill and flash-decode steps; for
-``--arch rwkv6_1_6b``, the CUDA WKV6 kernel in prefill).  ``--bench-out``
+``--arch rwkv6_1_6b``, the CUDA WKV6 kernel in prefill; for ``--arch
+hymba_1_5b``, plain PyTorch sliding-window attention and selective SSM
+with a ring KV cache, no kernel, as in the reference).  ``--bench-out``
 writes the predicted-vs-measured comparison.
 
 Emulate mode (the zoo of per-arch profiles on an emulated cluster) waits
@@ -16,6 +18,9 @@ item 4).
         --prompt-len 128 --gen-len 16 --n 24 --bench-out build/serve.json
     PYTHONPATH=src python -m repro_torch.launch.serve --real \
         --arch rwkv6_1_6b --reduced --device cpu --n 8 --prompt-len 8 \
+        --gen-len 2 --batches 1 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --real \
+        --arch hymba_1_5b --reduced --device cpu --n 8 --prompt-len 8 \
         --gen-len 2 --batches 1 2
 """
 from __future__ import annotations

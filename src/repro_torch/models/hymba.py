@@ -1,0 +1,311 @@
+"""Hymba [arXiv:2411.13676], the hybrid family: every layer runs a
+sliding-window GQA attention branch and a Mamba-style selective-SSM branch
+in parallel over the same input and fuses their (per-branch normalised)
+outputs.
+
+As in the reference: every layer uses sliding-window attention, and
+meta-tokens and the Mamba depthwise conv are omitted.
+
+SSM recurrence (state N per channel, d_inner = d_model):
+
+    h_t = exp(dt_t A) * h_{t-1} + (dt_t x_t) outer B_t
+    y_t = C_t . h_t + D_skip * x_t
+
+Prefill evaluates it chunk by chunk (chunks of 256, then a remainder
+chunk), each chunk by a log2(C)-step doubling scan over its tokens; decode
+is :func:`ssm_step`.  Neither branch runs a CUDA kernel, as neither runs a
+Pallas kernel in the reference: prefill attention is the plain
+``chunked_attention`` with the window mask, decode attention the plain
+``decode_ring_attention``.
+
+Parameters are a flat ``dict[str, Tensor]`` keyed by the reference's path
+names (``layers/wq``, ``embed``, ...), layer weights stacked on a leading
+n_layers axis.  The cache holds per layer a ring of keys and values, the
+fp32 SSM state, and the position ``t``; prefill and decode write it in
+place.  Prefill packs the ring at ``cache_len(cfg, S, "window")`` slots, S
+the prompt length, as the reference does: a prompt shorter than the window
+gets a ring only S slots wide, so decode evicts positions still inside the
+window (ROADMAP §3).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.registry import ModelConfig
+from repro_torch.models import kvcache
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import RunOptions
+
+SSM_CHUNK = 256
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+def _layer_param_shapes(cfg: ModelConfig) -> dict[str, tuple]:
+    d, f, n = cfg.d_model, cfg.d_ff, cfg.ssm_state
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    return {
+        # attention branch
+        "wq": (d, h * dh), "wk": (d, kv * dh), "wv": (d, kv * dh),
+        "wo_attn": (h * dh, d),
+        # mamba branch (d_inner = d)
+        "w_in": (d, 2 * d),                       # -> (x_m, z)
+        "w_dt": (d, d), "b_dt": (d,),
+        "w_B": (d, n), "w_C": (d, n),
+        "a_log": (d, n), "d_skip": (d,),
+        "w_out": (d, d),
+        # fusion norms
+        "fuse_attn_scale": (d,), "fuse_ssm_scale": (d,),
+        # pre-norms + mlp
+        "ln1_scale": (d,), "ln2_scale": (d,),
+        "w1": (d, f), "w2": (d, f), "w3": (f, d),
+    }
+
+
+def param_specs(cfg: ModelConfig, opts: RunOptions = RunOptions()) -> dict:
+    """path name -> (shape, dtype)."""
+    pd = opts.param_dtype
+    specs = {f"layers/{k}": ((cfg.n_layers,) + s, pd)
+             for k, s in _layer_param_shapes(cfg).items()}
+    specs["embed"] = ((cfg.vocab, cfg.d_model), pd)
+    specs["final_norm_scale"] = ((cfg.d_model,), pd)
+    specs["lm_head"] = ((cfg.vocab, cfg.d_model), pd)
+    return specs
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                opts: RunOptions = RunOptions(), device=None) -> dict:
+    """The reference's rules: scales 1, ``b_dt`` and ``d_skip`` 0,
+    ``a_log`` = log(1..N) along the state axis, other weights Normal(0,
+    1/sqrt(fan_in)) drawn from ``generator`` (which must live on
+    ``device``)."""
+    out = {}
+    for path, (shape, dtype) in param_specs(cfg, opts).items():
+        name = path.rsplit("/", 1)[-1]
+        if "scale" in name:
+            out[path] = torch.ones(shape, dtype=dtype, device=device)
+        elif name in ("b_dt", "d_skip"):
+            out[path] = torch.zeros(shape, dtype=dtype, device=device)
+        elif name == "a_log":
+            n = torch.arange(1, shape[-1] + 1, dtype=torch.float32,
+                             device=device)
+            out[path] = torch.log(n).expand(shape).to(dtype).contiguous()
+        else:
+            out[path] = L.dense_init(generator, shape, dtype, device=device)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Selective SSM
+# ---------------------------------------------------------------------------
+def _doubling_scan(da, dbx):
+    """Inclusive scan along dim 1 of the pairs (a_t, b_t) under
+    (a1, b1) . (a2, b2) = (a1 a2, b1 a2 + b2), the operator of the
+    reference's ``associative_scan``, in log2(C) doubling steps.  Each
+    step's decay stays its own factor, so no running sum of log-decays
+    (whose negation overflows fp32) is ever formed."""
+    off, c = 1, da.shape[1]
+    while off < c:
+        b_next = dbx.clone()
+        b_next[:, off:].addcmul_(dbx[:, :-off], da[:, off:])
+        a_next = da.clone()
+        a_next[:, off:].mul_(da[:, :-off])
+        da, dbx = a_next, b_next
+        off *= 2
+    return da, dbx
+
+
+def ssm_scan(xm, dt, b_in, c_in, a_log, d_skip, h0, chunk: int = SSM_CHUNK):
+    """xm/dt: (B, T, D); b_in/c_in: (B, T, N); h0: (B, D, N) fp32.
+
+    Returns (y (B, T, D) in xm's dtype, h_fin (B, D, N) fp32).  Chunks of
+    ``chunk`` tokens run in order, a last shorter one as the remainder."""
+    t = xm.shape[1]
+    a = -torch.exp(a_log.float())                           # (D, N) < 0
+    chunk = min(chunk, t)
+    dt32 = dt.float()
+    da = torch.exp(dt32[..., None] * a)                     # (B, T, D, N)
+    dbx = (dt32 * xm.float())[..., None] * b_in.float()[..., None, :]
+    c32 = c_in.float()
+    h, ys = h0, []
+    for t0 in range(0, t, chunk):
+        sl = slice(t0, t0 + chunk)
+        aa, bb = _doubling_scan(da[:, sl], dbx[:, sl])
+        h_all = aa * h[:, None] + bb                        # (B, C, D, N)
+        ys.append(torch.einsum("bcdn,bcn->bcd", h_all, c32[:, sl]))
+        h = h_all[:, -1]
+    y = torch.cat(ys, dim=1) + d_skip.float() * xm.float()
+    return y.to(xm.dtype), h
+
+
+def ssm_step(xm, dt, b_in, c_in, a_log, d_skip, h):
+    """One token.  xm/dt: (B, 1, D); b_in/c_in: (B, 1, N); h: (B, D, N)
+    fp32.  Returns (y (B, 1, D) in xm's dtype, h')."""
+    a = -torch.exp(a_log.float())
+    dt32 = dt[:, 0].float()
+    da = torch.exp(dt32[..., None] * a)
+    dbx = (dt32 * xm[:, 0].float())[..., None] * b_in[:, 0].float()[:, None]
+    h = da * h + dbx
+    y = torch.einsum("bdn,bn->bd", h, c_in[:, 0].float())
+    y = y + d_skip.float() * xm[:, 0].float()
+    return y[:, None].to(xm.dtype), h
+
+
+# ---------------------------------------------------------------------------
+# Layer
+# ---------------------------------------------------------------------------
+def _mamba_branch(w, x, h0, decode: bool):
+    xm, z = (x @ w["w_in"]).chunk(2, dim=-1)
+    dt = F.softplus(xm @ w["w_dt"] + w["b_dt"])
+    b_in = xm @ w["w_B"]
+    c_in = xm @ w["w_C"]
+    step = ssm_step if decode else ssm_scan
+    y, h = step(xm, dt, b_in, c_in, w["a_log"], w["d_skip"], h0)
+    return (y * F.silu(z)) @ w["w_out"], h
+
+
+def _attn_branch(cfg, w, x, k_ring, v_ring, t, opts):
+    """Full sequence (``t`` None): returns (out, k, v) with the fresh
+    keys / values (B, S, KV, DH).  Decode (``t`` the 0-d position on the
+    device): writes ring slot t mod W of ``k_ring`` / ``v_ring`` in place
+    and returns (out, None, None)."""
+    b, s, _ = x.shape
+    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    positions = (torch.arange(s, device=x.device) if t is None
+                 else t.reshape(1))
+    q = L.apply_rope((x @ w["wq"]).reshape(b, s, h, dh), positions,
+                     cfg.rope_theta)
+    k = L.apply_rope((x @ w["wk"]).reshape(b, s, kv, dh), positions,
+                     cfg.rope_theta)
+    v = (x @ w["wv"]).reshape(b, s, kv, dh)
+    if t is None:
+        o = L.chunked_attention(q, k, v, causal=True, window=cfg.window,
+                                chunk=opts.attn_chunk)
+    else:
+        slot = torch.remainder(positions, k_ring.shape[1]).long()
+        k_ring.index_copy_(1, slot, k.to(k_ring.dtype))
+        v_ring.index_copy_(1, slot, v.to(v_ring.dtype))
+        o = L.decode_ring_attention(q, k_ring, v_ring, t=t,
+                                    window=cfg.window)
+        k = v = None
+    return o.reshape(b, s, h * dh) @ w["wo_attn"], k, v
+
+
+def layer(cfg, w, x, k_ring, v_ring, ssm, t, opts):
+    """One hybrid layer over x (B, S, D).  ``ssm`` (B, D, N) fp32 is the
+    SSM state the branch starts from; ``t`` None runs the full sequence,
+    else one decode token at position t.  Returns (x, k, v, h_fin), k / v
+    the fresh full-sequence keys / values (None in decode)."""
+    hpre = L.rms_norm(x, w["ln1_scale"])
+    attn_out, k, v = _attn_branch(cfg, w, hpre, k_ring, v_ring, t, opts)
+    ssm_out, h_fin = _mamba_branch(w, hpre, ssm, decode=t is not None)
+    fused = 0.5 * (L.rms_norm(attn_out, w["fuse_attn_scale"]) +
+                   L.rms_norm(ssm_out, w["fuse_ssm_scale"]))
+    x = x + fused
+    h2 = L.rms_norm(x, w["ln2_scale"])
+    x = x + L.swiglu_mlp(h2, w["w1"], w["w2"], w["w3"])
+    return x, k, v, h_fin
+
+
+# ---------------------------------------------------------------------------
+# Cache
+# ---------------------------------------------------------------------------
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                opts: RunOptions = RunOptions()) -> dict:
+    """name -> (shape, dtype); the ring is ``cache_len(cfg, max_len,
+    "window")`` slots wide."""
+    kv, dh, d, n = cfg.n_kv_heads, cfg.d_head, cfg.d_model, cfg.ssm_state
+    ls = cfg.n_layers
+    w = kvcache.cache_len(cfg, max_len, "window")
+    return {"t": ((), torch.int32),
+            "k": ((ls, batch, w, kv, dh), opts.act_dtype),
+            "v": ((ls, batch, w, kv, dh), opts.act_dtype),
+            "ssm": ((ls, batch, d, n), torch.float32)}
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               opts: RunOptions = RunOptions(), device=None) -> dict:
+    return {name: torch.zeros(shape, dtype=dtype, device=device)
+            for name, (shape, dtype) in
+            cache_specs(cfg, batch, max_len, opts).items()}
+
+
+def _pack_ring(ring, new):
+    """Write a layer's fresh keys or values ``new`` (B, S, KV, DH) into
+    its ``ring`` (B, W, KV, DH) in place: the last W positions, position
+    p at slot p mod W."""
+    s, w = new.shape[1], ring.shape[1]
+    if w < s:
+        new = torch.roll(new[:, s - w:], (s - w) % w, dims=1)
+    ring.copy_(new)
+
+
+# ---------------------------------------------------------------------------
+# Model API
+# ---------------------------------------------------------------------------
+def _layer(params, i) -> dict:
+    return {k[len("layers/"):]: v[i] for k, v in params.items()
+            if k.startswith("layers/")}
+
+
+def _stack(cfg, params, x, cache, t, opts):
+    """Every layer over x, each starting from its SSM state in ``cache``
+    and writing the new state and its ring back in place."""
+    for i in range(cfg.n_layers):
+        x, k, v, h_fin = layer(cfg, _layer(params, i), x, cache["k"][i],
+                               cache["v"][i], cache["ssm"][i], t, opts)
+        if t is None:
+            _pack_ring(cache["k"][i], k)
+            _pack_ring(cache["v"][i], v)
+        cache["ssm"][i].copy_(h_fin)
+    return L.rms_norm(x, params["final_norm_scale"])
+
+
+def forward(cfg: ModelConfig, params: dict, tokens, prefix_embeds=None,
+            opts: RunOptions = RunOptions(), mode: str = "prefill",
+            cache: Optional[dict] = None, max_len: Optional[int] = None):
+    """mode='prefill': (last_logits (B, V) fp32, cache);
+    mode='hidden': (hidden (B, S, D), 0.0).
+
+    Prefill starts from a zero SSM state, as the reference's does: a
+    passed ``cache`` (an executor reuses one per batch bucket) has its
+    state zeroed in place first, and its ring must be ``cache_len(cfg, S,
+    "window")`` slots wide, the width the reference's prefill packs.
+    ``prefix_embeds`` and ``max_len`` are ignored, as in the reference."""
+    if mode == "train":
+        raise NotImplementedError("train mode is not ported yet "
+                                  "(ROADMAP item 5, training substrate)")
+    if mode not in ("prefill", "hidden"):
+        raise ValueError(f"unknown mode {mode!r}")
+    b, s = tokens.shape
+    x = params["embed"][tokens].to(opts.act_dtype)
+    if cache is None or mode == "hidden":
+        cache = init_cache(cfg, b, s, opts, device=x.device)
+    else:
+        want = kvcache.cache_len(cfg, s, "window")
+        if cache["k"].shape[2] != want:
+            raise ValueError(f"a prompt of {s} tokens packs a ring of "
+                             f"{want} slots; the cache's ring has "
+                             f"{cache['k'].shape[2]}")
+        cache["ssm"].zero_()
+    x = _stack(cfg, params, x, cache, None, opts)
+    if mode == "hidden":
+        return x, 0.0
+    cache["t"].fill_(s)
+    return (x[:, -1] @ params["lm_head"].T).float(), cache
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens,
+                opts: RunOptions = RunOptions()):
+    """tokens: (B, 1) int.  Returns (logits (B, V) fp32, cache), the ring
+    written at slot t mod W, the SSM states updated and ``t`` advanced, in
+    place."""
+    x = params["embed"][tokens[:, :1]].to(opts.act_dtype)
+    x = _stack(cfg, params, x, cache, cache["t"], opts)
+    logits = (x[:, 0] @ params["lm_head"].T).float()
+    cache["t"].add_(1)
+    return logits, cache

@@ -1,9 +1,11 @@
 """KV-cache geometry.
 
 The dense family keeps a full, ring-less cache (B, S_max, KV, DH) per
-layer, stacked on the leading layer axes.  Ring caches (sliding-window and
-chunked-local layers) and SSM state caches arrive with the families that
-use them (ROADMAP, items 2 and 3).
+layer, stacked on the leading layer axes.  Hymba's sliding-window layers
+keep a ring of ``cache_len(cfg, S, "window")`` slots, position p at slot
+p mod W (``models/hymba.py``); RWKV6 keeps a fixed-size state instead.
+The transformer family's window and chunked-local rings arrive with the
+MoE configs that use them (ROADMAP item 3).
 """
 from __future__ import annotations
 

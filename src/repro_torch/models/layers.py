@@ -8,6 +8,8 @@ Attention:
     plain path for prefill shapes.
   * ``decode_attention``  — one token against a linear KV cache, with the
     valid length given as a tensor so the decode loop never syncs.
+  * ``decode_ring_attention`` — one token against a ring KV cache
+    (sliding-window layers), the position ``t`` a tensor likewise.
 """
 from __future__ import annotations
 
@@ -151,6 +153,36 @@ def decode_attention(q, k_cache, v_cache, *, length):
     length = torch.as_tensor(length, device=q.device).reshape(-1, 1, 1, 1)
     valid = torch.arange(s, device=q.device)[None, None, None, :] < length
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+def decode_ring_attention(q, k_cache, v_cache, *, t, window=None,
+                          local_block=None):
+    """One-token attention over a ring cache.
+
+    q: (B, 1, H, D); caches: (B, W, KV, D).  ``t`` (a 0-d tensor on the
+    caches' device) is the new token's position; the cache holds positions
+    <= t, ring slot i the absolute position p_i = t - ((t - i) mod W)
+    (negative: not yet written)."""
+    b, _, h, d = q.shape
+    w = k_cache.shape[1]
+    n_rep = h // k_cache.shape[2]
+    k = _expand_kv(k_cache, n_rep)
+    v = _expand_kv(v_cache, n_rep)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    scores = scores * (1.0 / math.sqrt(d))
+    i = torch.arange(w, device=q.device)
+    kv_pos = t - torch.remainder(t - i, w)      # (W,) absolute positions
+    mask = kv_pos >= 0
+    if window is not None:
+        mask &= (t - kv_pos) < window
+    if local_block is not None:
+        mask &= kv_pos >= torch.div(t, local_block,
+                                    rounding_mode="floor") * local_block
+    scores = torch.where(mask[None, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     return out.to(q.dtype)

@@ -10,8 +10,9 @@ and the tests use:
     cache_specs(batch, max_len) / init_cache(batch, max_len)
 
 Batches are dicts: {"tokens": (B, S) int, ["prefix_embeds": (B, P, D)]}.
-The transformer families and rwkv6 (ssm) work; hymba (hybrid) raises
-NotImplementedError until its slice lands (ROADMAP item 3).
+The transformer families, rwkv6 (ssm) and hymba (hybrid) work; MoE
+configs raise NotImplementedError until their slice lands (ROADMAP
+item 3).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.registry import ModelConfig
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import hymba, rwkv6, transformer
 from repro_torch.models.transformer import RunOptions
 
 
@@ -40,9 +41,7 @@ def _family_module(cfg: ModelConfig):
     if cfg.family == "ssm":
         return rwkv6
     if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP item 3)")
+        return hymba
     return transformer  # dense | vlm | audio (moe raises inside)
 
 

@@ -3,7 +3,9 @@
 ``TorchExecutor`` runs the port's model through ``models/model.py`` (for a
 transformer, CUDA flash-attention prefill and flash-decode steps; for
 RWKV6, the CUDA WKV6 kernel in prefill and the plain one-token recurrence
-in decode) behind the emulator's
+in decode; for Hymba, plain PyTorch throughout, as in the reference: the
+window-masked chunked attention and the doubling SSM scan in prefill, ring
+attention and the one-token SSM step in decode) behind the emulator's
 Gateway → autoscaler → ``ClusterSim`` dispatch path.  The emulator stays
 the timing and placement model; every dispatched task is additionally
 executed for real here, and the measured wall times check the emulator's
@@ -15,16 +17,18 @@ Design:
   the nearest ``batch_lattice`` bucket, so the shapes the device ever sees
   are the profile lattice itself.
 * **Cell cache** — each (arch, stage, batch-bucket, quota) key maps to a
-  cell that holds the bucket's preallocated cache (KV cache, or RWKV6
-  states) and token buffers.
+  cell that holds the bucket's preallocated cache (KV cache; RWKV6
+  states; Hymba's ring KV cache, fp32 SSM states and ``t``) and token
+  buffers.  A Hymba cell's ring is ``min(window, prompt_len)`` slots
+  wide, the width the reference's prefill packs, not ``max_len``.
   A bucket's cell is built once (``compiles`` counts the builds, the
   counterpart of the reference's XLA compiles); after ``warmup()`` the
   hit rate is exactly 1.0.  Quota variants alias the bucket's cell, since
   quota is a pass count and not a shape.
 * **In-place decode** — prefill writes the cell's cache and each decode
-  step updates it in place (a transformer writes slot ``t`` with ``t`` on
-  the device), so the decode loop allocates no cache and never syncs with
-  the host.
+  step updates it in place (a transformer writes slot ``t``, Hymba slot
+  ``t mod W``, with ``t`` on the device), so the decode loop allocates no
+  cache and never syncs with the host.
 * **Async dispatch** — ``submit()`` enqueues onto a single worker thread
   and returns a future; ``drain()`` collects the records.
 
@@ -69,7 +73,7 @@ class _Cell:
     """A bucket's preallocated buffers: prompt tokens, cache, next
     tokens."""
     tokens: torch.Tensor        # (bucket, prompt_len)
-    cache: dict                 # from Model.init_cache(bucket, max_len)
+    cache: dict                 # from Model.init_cache(bucket, cache_len)
     next_tokens: torch.Tensor   # (bucket, 1) int64
 
 
@@ -99,6 +103,10 @@ class TorchExecutor:
         self.prompt_len = prompt_len
         self.gen_len = gen_len
         self.max_len = prompt_len + gen_len
+        # the reference's Hymba prefill packs its ring at the prompt's
+        # width, whatever max_len is, and decode never widens it
+        self.cache_len = (prompt_len if self.cfg.family == "hybrid"
+                          else self.max_len)
         rng = np.random.default_rng(seed)
         # deterministic per-bucket token batches: padding a real batch
         # reuses the bucket's prefix, so shapes are a function of the bucket
@@ -129,7 +137,7 @@ class TorchExecutor:
         """Allocate one bucket's buffers (once per bucket)."""
         self.compiles += 1
         return _Cell(tokens=self._tokens[bucket],
-                     cache=self.model.init_cache(bucket, self.max_len),
+                     cache=self.model.init_cache(bucket, self.cache_len),
                      next_tokens=torch.zeros((bucket, 1), dtype=torch.long,
                                              device=self.device))
 

@@ -137,10 +137,12 @@ def test_params_from_reference_keeps_bf16():
     assert out["layers/wq"].shape == (1, 1, 2, 2)
 
 
-# rwkv6_1_6b is ported too; tests/test_torch_rwkv6.py covers it
+# rwkv6_1_6b and hymba_1_5b are ported too; tests/test_torch_rwkv6.py and
+# tests/test_torch_hymba.py cover them
 @pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(PORTED)
                                         - {"internlm2_20b", "internvl2_76b",
-                                           "musicgen_medium", "rwkv6_1_6b"}))
+                                           "musicgen_medium", "rwkv6_1_6b",
+                                           "hymba_1_5b"}))
 def test_unported_families_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model(reduced(get_config(arch)), F32, device="cpu").init(0)

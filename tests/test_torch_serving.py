@@ -2,7 +2,7 @@
 
 The executor tests are the reference's (tests/test_realcompute.py), run on
 the port's ``TorchExecutor`` with ``device="cpu"`` at reduced size, for each
-ported family's serving arch (InternLM2, RWKV6): zero cell builds after
+ported family's serving arch (InternLM2, RWKV6, Hymba): zero cell builds after
 warmup, bucket and quota snapping, quota as serialized
 passes, and an unchanged schedule digest with the executor attached.  The
 control-plane test drives the reference's and the port's copies of the
@@ -17,7 +17,7 @@ import pytest
 import torch
 
 
-ARCHS = ["internlm2_1_8b", "rwkv6_1_6b"]
+ARCHS = ["internlm2_1_8b", "rwkv6_1_6b", "hymba_1_5b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
