@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100 class).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--wkv6-previous CU]
 
 Phases, in order; any failure raises and the exit code is nonzero:
 
@@ -12,12 +12,15 @@ Phases, in order; any failure raises and the exit code is nonzero:
    against its plain PyTorch version on the card, at the serving paths'
    shapes and at small shapes with every mask, padding tail and head dim,
    every q-tile route of the bf16 flash-attention and the float32 route,
-   and flash-decode's cluster edge cases (t = 0, empty blocks, S = 4096,
-   ring masks), with TF32 off; then the kernel's time, the plain
-   version's time and, where one exists, one PyTorch library call's time
-   (CUDA events, median of 30 launches after warmup, L2 flushed between
-   launches, host launch overhead kept out of the span), at the serving
-   shapes and at one long shape per attention kernel; then each reduced
+   flash-decode's cluster edge cases (t = 0, empty blocks, S = 4096,
+   ring masks) and every (VB, P, CPT) route of WKV6 at T = 1, 31, 33 and
+   200, with TF32 off; then the kernel's time, the plain version's time and,
+   where one exists, one PyTorch library call's time (CUDA events, median
+   of 30 launches after warmup, L2 flushed between launches, host launch
+   overhead kept out of the span), at the serving shapes and at one long
+   shape per kernel, WKV6's time on each of its routes at every serving
+   bucket and, with ``--wkv6-previous``, an earlier WKV6 design's time
+   beside it (its source built apart from the package); then each reduced
    model (InternLM2, RWKV6) with the kernels against the same model on the
    plain path, and the reduced Hymba (which runs no kernel, as in the
    reference) on the card against the same model on the CPU, at a prompt
@@ -38,6 +41,7 @@ nonzero and prints no result.  Longer outputs go to ``build/chip_smoke/``.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import pathlib
@@ -378,15 +382,23 @@ def _wkv6_inputs(torch, g, b, t, h, kd, dtype):
 
 def check_wkv6(torch, rw_ops, rcfg) -> dict:
     g = torch.Generator(device="cuda").manual_seed(5)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def case(r, k, v, lw, u, s0):
+    def case(r, k, v, lw, u, s0, shape=None):
         tol = WKV_TOL[str(r.dtype)[6:]]
-        y, s_fin = rw_ops.wkv6(r, k, v, lw, u, s0)
+        if shape is None:
+            y, s_fin = rw_ops.wkv6(r, k, v, lw, u, s0)
+        else:
+            y, s_fin = rw_ops._launch(r, k, v, lw, u, s0, shape)
         y_ref, s_ref = rw_ops.wkv6_ref(
             *(x.transpose(1, 2) for x in (r, k, v, lw)), u, s0)
         torch.cuda.synchronize()
         return _worst(_err(torch, y, y_ref.transpose(1, 2), tol),
                       _err(torch, s_fin, s_ref, tol))
+
+    def route(b, h, kd):
+        return "VB={} P={} CPT={}".format(*rw_ops.launch_shape(b, h, kd,
+                                                               n_sm))
 
     h, kd = rcfg.n_heads, rcfg.d_head
     main = (0.0, 0.0)
@@ -395,7 +407,8 @@ def check_wkv6(torch, rw_ops, rcfg) -> dict:
             err, margin = case(*_wkv6_inputs(torch, g, b, PROMPT_LEN, h, kd,
                                              dtype))
             log(f"[kernels] wkv6 B={b} T={PROMPT_LEN} H={h} K=V={kd} "
-                f"{str(dtype)[6:]}: max_abs_err(y, s_fin)={err:.3e} "
+                f"{str(dtype)[6:]} {route(b, h, kd)}: "
+                f"max_abs_err(y, s_fin)={err:.3e} "
                 f"margin={margin:.3f} tol={WKV_TOL[str(dtype)[6:]]}")
             if dtype == torch.bfloat16:
                 main = _worst(main, (err, margin))
@@ -406,7 +419,7 @@ def check_wkv6(torch, rw_ops, rcfg) -> dict:
         for (b, t, hh, kk) in small:
             err, margin = case(*_wkv6_inputs(torch, g, b, t, hh, kk, dtype))
             log(f"[kernels] wkv6 B={b} T={t} H={hh} K=V={kk} "
-                f"{str(dtype)[6:]}: max_abs_err={err:.3e} "
+                f"{str(dtype)[6:]} {route(b, hh, kk)}: max_abs_err={err:.3e} "
                 f"margin={margin:.3f}")
         # strided inputs: every other head of a wider tensor
         r, k, v, lw, u, s0 = _wkv6_inputs(torch, g, 2, 70, 4, 16, dtype)
@@ -414,6 +427,18 @@ def check_wkv6(torch, rw_ops, rcfg) -> dict:
                            s0[:, ::2])
         log(f"[kernels] wkv6 strided B=2 T=70 H=2 of 4 K=V=16 "
             f"{str(dtype)[6:]}: max_abs_err={err:.3e} margin={margin:.3f}")
+        # every (VB, P, CPT) route at every head dim: one token, inside one
+        # staged chunk, one past it, several chunks with a ragged tail
+        for kk in rw_ops.HEAD_DIMS:
+            worst = (0.0, 0.0)
+            for shape in rw_ops.routes(kk):
+                for t in (1, 31, 33, 200):
+                    worst = _worst(worst, case(
+                        *_wkv6_inputs(torch, g, 2, t, 2, kk, dtype), shape))
+            log(f"[kernels] wkv6 every route of K=V={kk} "
+                f"{rw_ops.routes(kk)} at B=2 T=1,31,33,200 H=2 "
+                f"{str(dtype)[6:]}: max_abs_err={worst[0]:.3e} "
+                f"margin={worst[1]:.3f}")
     return _check_row(main, WKV_TOL["bfloat16"])
 
 
@@ -433,38 +458,114 @@ def wkv6_work(b: int, t: int, h: int, kd: int, esize: int) -> tuple:
     return nbytes, float(b * t * h * per_token)
 
 
-def time_wkv6(torch, rw_ops, rcfg, peaks) -> dict:
+def previous_wkv6(torch, source: str):
+    """The WKV6 kernel of an earlier design, from a copy of its source kept
+    outside the package (e.g. ``git show <commit>:src/repro_torch/kernels/
+    rwkv6/csrc/rwkv6.cu``): built with the package's nvcc flags into
+    ``build/chip_smoke/`` and called through its C interface, which takes
+    no (VB, P, CPT).  Returns wkv6(r, k, v, lw, u, s0) -> (y, s_fin)."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    lib_path = OUT / "wkv6_previous.so"
+    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib_path),
+                    source], check=True, timeout=600)
+    lib = ctypes.CDLL(str(lib_path))
+    fn = lib.repro_rwkv6_fwd
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    fn.argtypes, fn.restype = [P] * 8 + [I] * 5 + [L] * 15 + [P], I
+
+    def wkv6(r, k, v, lw, u, s0):
+        b, t, h, kd = r.shape
+        y = torch.empty_like(v)
+        s_fin = torch.empty_like(s0)
+        err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+                 u.data_ptr(), s0.data_ptr(), y.data_ptr(),
+                 s_fin.data_ptr(), int(r.dtype == torch.bfloat16), b, t, h,
+                 kd, *r.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+                 *lw.stride()[:3], *y.stride()[:3],
+                 torch.cuda.current_stream().cuda_stream)
+        _build.check(lib, "repro_rwkv6", err)
+        return y, s_fin
+    return wkv6
+
+
+def time_wkv6(torch, rw_ops, rcfg, peaks, previous=None) -> dict:
     """WKV6 kernel / plain times at the prefill shapes of the largest
-    serving bucket and of batch 1, bf16 r/k/v as the model gives them.
-    Bound at the float32 rate: every term is fp32, as in the reference.
-    No single PyTorch call computes WKV6, so there is no library time."""
+    serving bucket and of batch 1, bf16 r/k/v as the model gives them,
+    and at one long prompt (T = 2048, not on the path) at both batches;
+    the kernel's time on every (VB, P, CPT) route at every bucket of the
+    serving lattice; and, given ``previous`` (:func:`previous_wkv6`), that
+    design's time at the two serving shapes beside this one's, in turns
+    (previous, kernel, kernel, previous), after checking it against the
+    plain version.  Bound at the float32 rate: every term is fp32, as in
+    the reference.  No single PyTorch call computes WKV6, so there is no
+    library time."""
     from repro_torch.models.rwkv6 import wkv6_chunked
 
     g = torch.Generator(device="cuda").manual_seed(6)
     h, kd = rcfg.n_heads, rcfg.d_head
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rows = {}
-    for b in (max(BATCHES), 1):
-        r, k, v, lw, u, s0 = _wkv6_inputs(torch, g, b, PROMPT_LEN, h, kd,
+    for b, t in ((max(BATCHES), PROMPT_LEN), (1, PROMPT_LEN),
+                 (max(BATCHES), 2048), (1, 2048)):
+        r, k, v, lw, u, s0 = _wkv6_inputs(torch, g, b, t, h, kd,
                                           torch.bfloat16)
         args_t = [x.transpose(1, 2) for x in (r, k, v, lw)]
-        nbytes, ops = wkv6_work(b, PROMPT_LEN, h, kd, 2)
+        nbytes, ops = wkv6_work(b, t, h, kd, 2)
         b_ms, b_by = bound(peaks, nbytes, ops, "float32")
-        rows[b] = {
+        long = t > PROMPT_LEN
+        row = {
             "ms": time_ms(torch, lambda: rw_ops.wkv6(r, k, v, lw, u, s0)),
             "plain_ms": time_ms(
-                torch, lambda: rw_ops.wkv6_ref(*args_t, u, s0)),
+                torch, lambda: rw_ops.wkv6_ref(*args_t, u, s0),
+                reps=5 if long else 30, warmup=1 if long else 5),
             "chunked_ms": time_ms(
                 torch, lambda: wkv6_chunked(r, k, v, lw, u, s0)),
             "library_ms": None,
             "bound_ms": b_ms, "bound_by": b_by,
             "bytes": nbytes, "operations": ops,
-            "shape": f"B={b} T={PROMPT_LEN} H={h} K=V={kd} bf16",
+            "route": rw_ops.launch_shape(b, h, kd, n_sm),
+            "shape": f"B={b} T={t} H={h} K=V={kd} bf16",
         }
-        row = rows[b]
-        log(f"[timing] wkv6 {row['shape']}: " + " ".join(
-            f"{key}={row[key]:.4f}" for key in
-            ("ms", "plain_ms", "chunked_ms", "bound_ms"))
+        if previous is not None and not long:
+            y, s_fin = previous(r, k, v, lw, u, s0)
+            y_ref, s_ref = rw_ops.wkv6_ref(*args_t, u, s0)
+            torch.cuda.synchronize()
+            _worst(_err(torch, y, y_ref.transpose(1, 2),
+                        WKV_TOL["bfloat16"]),
+                   _err(torch, s_fin, s_ref, WKV_TOL["bfloat16"]))
+            turns = [time_ms(torch, lambda: fn(r, k, v, lw, u, s0))
+                     for fn in (previous, rw_ops.wkv6, rw_ops.wkv6,
+                                previous)]
+            row["previous_ms"] = [turns[0], turns[3]]
+            row["turns_ms"] = [turns[1], turns[2]]
+        rows[f"long B={b}" if long else b] = row
+        log(f"[timing] wkv6 {row['shape']} "
+            + "VB={} P={} CPT={}: ".format(*row["route"]) + " ".join(
+                f"{key}={row[key]:.4f}" for key in
+                ("ms", "plain_ms", "chunked_ms", "bound_ms"))
             + f" bound_by={b_by} library_ms=None")
+        if "previous_ms" in row:
+            log(f"[timing] wkv6 {row['shape']} previous design vs this, in "
+                f"turns: previous {row['previous_ms'][0]:.4f}, "
+                f"{row['previous_ms'][1]:.4f}; this "
+                f"{row['turns_ms'][0]:.4f}, {row['turns_ms'][1]:.4f}")
+    for b in BATCHES:
+        r, k, v, lw, u, s0 = _wkv6_inputs(torch, g, b, PROMPT_LEN, h, kd,
+                                          torch.bfloat16)
+        by_route = {
+            "VB={} P={} CPT={}".format(*shape): time_ms(
+                torch, lambda: rw_ops._launch(r, k, v, lw, u, s0, shape))
+            for shape in rw_ops.routes(kd)}
+        rows[f"routes B={b}"] = {
+            "routes_ms": by_route,
+            "route": rw_ops.launch_shape(b, h, kd, n_sm),
+            "shape": f"B={b} T={PROMPT_LEN} H={h} K=V={kd} bf16"}
+        log(f"[timing] wkv6 B={b} T={PROMPT_LEN} by route (launch_shape: "
+            + "VB={} P={} CPT={}): ".format(*rows[f"routes B={b}"]["route"])
+            + ", ".join(f"{name} {ms:.4f}" for name, ms in by_route.items()))
     return rows
 
 
@@ -644,6 +745,12 @@ def serve(torch, arch: str, cfg, counters: dict, per_step: dict) -> dict:
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--wkv6-previous", metavar="CU",
+                    help="a WKV6 source of an earlier design (the same C "
+                    "interface without VB, P and CPT), timed beside the "
+                    "package's kernel at the serving shapes")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -693,8 +800,11 @@ def main() -> int:
     fd_chk = check_flash_decode(torch, fd_ops, cfg)
     wkv_chk = check_wkv6(torch, rw_ops, rcfg)
     timing = time_kernels(torch, fa_ops, fd_ops, cfg, peaks)
-    for b, row in time_wkv6(torch, rw_ops, rcfg, peaks).items():
-        timing[b]["wkv6"] = row
+    previous = (previous_wkv6(torch, args.wkv6_previous)
+                if args.wkv6_previous else None)
+    for key, row in time_wkv6(torch, rw_ops, rcfg, peaks,
+                              previous).items():
+        timing.setdefault(key, {})["wkv6"] = row
     check_model(torch, ARCH, (fa_ops.flash_attention,),
                 (fd_ops.flash_decode_at,))
     check_model(torch, RWKV_ARCH, (rw_ops.wkv6,), ())

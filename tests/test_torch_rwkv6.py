@@ -290,6 +290,59 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     assert rw_ops.wkv6.launches == 0
 
 
+# ---- the kernel's launch shape --------------------------------------------
+
+LATTICE = (1, 2, 4, 8)      # the serving batch buckets
+HEADS = (1, 4, 32)          # RWKV6-1.6B has 32 heads of 64
+
+
+@pytest.mark.parametrize("kd", rw_ops.HEAD_DIMS)
+@pytest.mark.parametrize("n_sms", [132, 16])
+def test_launch_shape_fits_the_kernel_and_fills_the_card(kd, n_sms):
+    for b in LATTICE:
+        for h in HEADS:
+            vb, p, cols = rw_ops.launch_shape(b, h, kd, n_sms)
+            assert (vb, p, cols) in rw_ops.routes(kd)
+            assert kd % vb == 0 and kd % p == 0 and vb % cols == 0
+            assert vb // cols * p <= 1024
+            assert kd // p <= 64
+            # the grid gives 7/8 of the SMs a block wherever VB = 8 would
+            if b * h * kd // min(rw_ops.COL_WIDTHS) * 8 >= 7 * n_sms:
+                assert kd // vb * h * b * 8 >= 7 * n_sms, (b, h, kd, vb)
+
+
+def test_launch_shape_picks_the_measured_best_routes():
+    """RWKV6-1.6B (H = 32, K = 64) on the H100's 132 SMs: the fastest
+    route of the sweep at each serving bucket (PERF.md)."""
+    got = [rw_ops.launch_shape(b, 32, 64, 132) for b in LATTICE]
+    assert got == [(16, 8, 2), (32, 8, 2), (64, 8, 4), (64, 8, 4)]
+
+
+@pytest.mark.parametrize("kd", rw_ops.HEAD_DIMS)
+def test_routes_are_what_the_kernel_takes(kd):
+    """Each (VB, P, CPT): VB a power of two dividing V with 16-byte bf16 v
+    copies; P lanes per column group, each with 8 state rows (4 at K = 8);
+    CPT <= P columns a lane, at most 32 state registers; a thread per
+    (group, lane) within the launch bound."""
+    got = rw_ops.routes(kd)
+    assert len(set(got)) == len(got) > 0
+    for vb, p, cols in got:
+        assert vb & (vb - 1) == 0 and kd % vb == 0 and vb * 2 % 16 == 0
+        assert p == rw_ops.lanes_per_column(kd) and kd // p in (4, 8)
+        assert vb % cols == 0 and cols <= p and kd // p * cols <= 32
+        assert vb // cols * p <= rw_ops.MAX_THREADS
+
+
+def test_launch_refuses_what_the_kernel_does_not_take():
+    r, k, v, lw, u, s0 = (torch.from_numpy(a)
+                          for a in _wkv_inputs(9, 1, 8, 2, 16))
+    with pytest.raises(ValueError, match="not in"):     # 2 rows a lane
+        rw_ops._launch(r, k, v, lw, u, s0, shape=(8, 8, 2))
+    with pytest.raises(ValueError, match="16-byte"):    # rows off by 4 B
+        wide = torch.from_numpy(_wkv_inputs(9, 1, 8, 2, 17)[0])
+        rw_ops._launch(wide[..., 1:], k, v, lw, u, s0, shape=(16, 2, 2))
+
+
 # ---- (g) on the card ----------------------------------------------------------
 
 @pytest.fixture
@@ -304,15 +357,38 @@ def cuda():
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, WKV_TOL),
                                        (torch.bfloat16, 2e-2)])
 def test_cuda_wkv6_matches_plain(cuda, dtype, tol):
-    for b, t, h, kd in [(8, 128, 32, 64), (2, 70, 2, 16), (1, 32, 1, 128),
-                        (2, 48, 2, 8)]:
-        r, k, v, lw, u, s0 = (torch.from_numpy(a).to(cuda)
-                              for a in _wkv_inputs(8, b, t, h, kd))
+    """The kernel against the plain recurrence, nonzero s0 throughout: at
+    the shapes :func:`launch_shape` routes (the serving shapes, K = 128,
+    ragged tails), then on every (VB, P, CPT) route the kernel takes at every
+    head dim, at T = 1, 31, 33 and 200 (one token, inside one staged
+    chunk, one past it, several chunks with a ragged tail), then with
+    strided heads."""
+    def check(r, k, v, lw, u, s0, shape=None):
         r, k, v = (x.to(dtype) for x in (r, k, v))
-        y, s_fin = rw_ops.wkv6(r, k, v, lw, u, s0)
+        if shape is None:
+            y, s_fin = rw_ops.wkv6(r, k, v, lw, u, s0)
+        else:
+            y, s_fin = rw_ops._launch(r, k, v, lw, u, s0, shape)
         y_ref, s_ref = wkv6_ref(*(x.transpose(1, 2) for x in (r, k, v, lw)),
                                 u, s0)
         torch.cuda.synchronize()
         torch.testing.assert_close(y.float(), y_ref.transpose(1, 2).float(),
                                    atol=tol, rtol=tol)
         torch.testing.assert_close(s_fin, s_ref, atol=tol, rtol=tol)
+
+    def inputs(seed, b, t, h, kd):
+        return [torch.from_numpy(a).to(cuda)
+                for a in _wkv_inputs(seed, b, t, h, kd)]
+
+    for b, t, h, kd in [(8, 128, 32, 64), (1, 128, 32, 64), (2, 70, 2, 16),
+                        (1, 32, 1, 128), (4, 200, 8, 128), (2, 48, 2, 8)]:
+        check(*inputs(8, b, t, h, kd))
+    # routes() holds every shape launch_shape can return (the CPU tests)
+    for kd in rw_ops.HEAD_DIMS:
+        for shape in rw_ops.routes(kd):
+            for t in (1, 31, 33, 200):
+                check(*inputs(10 + t, 2, t, 2, kd), shape=shape)
+    for kd, shape in [(16, (8, 2, 2)), (64, (16, 8, 4)), (128, (16, 16, 2))]:
+        r, k, v, lw, u, s0 = inputs(11, 2, 70, 4, kd)
+        check(*(x[:, :, ::2] for x in (r, k, v, lw)), u[::2], s0[:, ::2],
+              shape=shape)
