@@ -33,7 +33,20 @@ Phases, in order; any failure raises and the exit code is nonzero:
    the run's invariants asserted: each kernel of the path launched once
    per layer per prefill pass or decode step, every other kernel (for
    Hymba, every kernel) not at all;
-5. report: one JSON line of kernel numbers, the card's name and power
+5. emulate (host only, no model and no kernel runs): the zoo's profile
+   tables for this card (each arch's t1), then ``emulate`` at
+   moderate-normal with ESG and with each of the four baselines, and one
+   mmpp scenario run with the ewma autoscaler, every request accounted
+   for, every kernel counter at 0;
+6. train (plain PyTorch autograd, no kernel, as in the reference): the
+   reduced InternLM2, RWKV6 and Hymba, 3 AdamW steps on the card against
+   the same 3 on the CPU in float32; the reduced InternLM2 in bf16, 12
+   steps with a failure injected at step 6 and a resume from the step-4
+   checkpoint, against an uninterrupted run; full-width InternLM2-1.8B in
+   bf16 at B = 8, S = 128, 8 steps with a checkpoint at step 4 and one
+   more step with int8 gradient compression, timed; every kernel counter
+   at 0;
+7. report: one JSON line of kernel numbers, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -44,6 +57,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -67,6 +81,15 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # the bf16 kernel tolerance for bf16
 WKV_TOL = {"float32": 5e-3, "bfloat16": 2e-2}
 MODEL_TOL = 1e-4    # reduced model, fp32, kernels vs plain path: logits
+EMULATE_N = 200
+# training: reduced models in fp32 (TF32 off), card vs CPU, 3 AdamW steps:
+# each step's loss within rel TRAIN_LOSS_RTOL, and each parameter's total
+# update within TRAIN_UPDATE_RTOL of the CPU's (relative L2 norm; Adam
+# divides by |g|, so gradient elements at the noise level may flip sign)
+TRAIN_ARCHS = (ARCH, RWKV_ARCH, HYMBA_ARCH)
+TRAIN_LOSS_RTOL, TRAIN_UPDATE_RTOL = 1e-5, 1e-3
+RESTART_ATOL = 1e-6   # final loss, resumed vs uninterrupted (bf16)
+FULL_BATCH, FULL_SEQ, FULL_STEPS, FULL_CKPT_AT, FULL_WARMUP = 8, 128, 8, 4, 2
 SLEEP_CYCLES = 4_000_000   # ~2 ms of device time at H100 clocks
 
 
@@ -744,6 +767,258 @@ def serve(torch, arch: str, cfg, counters: dict, per_step: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 5: emulate (host only)
+# ---------------------------------------------------------------------------
+def emulate_phase(name: str, counters: dict) -> dict:
+    """The zoo's profiles for this card, then ``emulate`` over those
+    tables with ESG, the four baselines and one scenario run; no kernel
+    may launch."""
+    from unittest import mock
+
+    from repro_torch.cluster.gpu_profiles import zoo_tables
+    from repro_torch.launch import serve
+    from repro_torch.launch.roofline import device_peaks
+
+    peaks = device_peaks(name)
+    tables = zoo_tables(peaks=peaks)
+    log("[emulate] host only: analytic zoo profiles, no model, no kernel")
+    log(f"[emulate] t1_ms ({peaks.name} peaks, the tables every run "
+        f"below schedules over): " + ", ".join(
+            f"{a} {t.fn.t1_ms:.3f}" for a, t in tables.items()))
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = {"t1_ms": {a: t.fn.t1_ms for a, t in tables.items()}}
+    with mock.patch.object(serve, "zoo_tables", lambda: tables):
+        for sched in ("esg", "infless", "fastgshare", "orion", "aquatope"):
+            s = serve.emulate("moderate-normal", EMULATE_N, seed=SEED,
+                              scheduler=sched, log=log)
+            if not (s["completed"] + s["shed"] == EMULATE_N
+                    and 0.0 <= s["slo_hit_rate"] <= 1.0):
+                raise AssertionError(
+                    f"emulate {sched}: {s['completed']} done + {s['shed']} "
+                    f"shed of {EMULATE_N}, hit rate {s['slo_hit_rate']}")
+            out[sched] = {k: s[k] for k in ("completed", "shed",
+                                            "slo_hit_rate", "total_cost",
+                                            "mean_latency_ms")}
+        s = serve.emulate("moderate-normal", EMULATE_N, seed=SEED,
+                          scenario="mmpp", autoscaler="ewma", log=log)
+    if not (s["injected"] == s["completed"] + s["shed"] == EMULATE_N
+            and 0.0 <= s["slo_attainment"] <= 1.0):
+        raise AssertionError(f"emulate mmpp/ewma: {s['injected']} injected, "
+                             f"{s['completed']} done, {s['shed']} shed, "
+                             f"attainment {s['slo_attainment']}")
+    out["mmpp_ewma"] = {k: s[k] for k in ("injected", "completed", "shed",
+                                          "slo_attainment", "cost_per_1k")}
+    launches = {n: fn.launches for n, fn in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"emulate launched kernels: {launches}")
+    log(f"[emulate] 6 runs of {EMULATE_N} requests in "
+        f"{time.perf_counter() - t0:.1f}s, every request accounted for, "
+        f"launches {launches}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: train
+# ---------------------------------------------------------------------------
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict)
+            else None if v is None else v.to(device) for k, v in tree.items()}
+
+
+def train_card_vs_cpu(torch, arch: str) -> dict:
+    """3 AdamW steps of the reduced ``arch`` in fp32 on the card and on the
+    CPU from the same parameters and batches."""
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.model import RunOptions
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import (Trainer, TrainerConfig,
+                                             deterministic)
+
+    cfg = reduced(get_config(arch))
+    f32 = torch.float32
+    kw = dict(data_cfg=DataConfig(vocab=cfg.vocab, seq_len=64,
+                                  global_batch=2),
+              tcfg=TrainerConfig(seed=SEED),
+              opts=RunOptions(remat="none", param_dtype=f32, act_dtype=f32),
+              opt_cfg=adamw.AdamWConfig(lr=1e-3, warmup_steps=1,
+                                        total_steps=3), log_fn=log)
+    host = Trainer(cfg, device="cpu", **kw)
+    card = Trainer(cfg, device="cuda", **kw)
+    hs = host.init_state()
+    cs = _to(hs, "cuda")
+    p0 = {k: v.clone() for k, v in hs["params"].items()}
+    losses = []
+    with deterministic(card.device):
+        for step in range(3):
+            batch = host.data.batch(step)
+            lc = float(card.train_step(cs, batch)["loss"])
+            lh = float(host.train_step(hs, batch)["loss"])
+            losses.append((lc, lh))
+    loss_err = max(abs(lc - lh) / abs(lh) for lc, lh in losses)
+    upd_err = max(
+        float((cs["params"][k].cpu() - hs["params"][k]).norm()
+              / (hs["params"][k] - p0[k]).norm().clamp_min(1e-30))
+        for k in p0)
+    ok = loss_err <= TRAIN_LOSS_RTOL and upd_err <= TRAIN_UPDATE_RTOL and \
+        all(math.isfinite(lc) for lc, _ in losses)
+    log(f"[train] reduced {arch} fp32, 3 steps card vs CPU: losses "
+        f"{[round(lc, 6) for lc, _ in losses]}, max rel loss diff "
+        f"{loss_err:.3e} (tol {TRAIN_LOSS_RTOL}), max rel update diff "
+        f"{upd_err:.3e} (tol {TRAIN_UPDATE_RTOL})")
+    if not ok:
+        raise AssertionError(f"reduced {arch}: card and CPU training differ")
+    return {"loss_rel_err": loss_err, "update_rel_err": upd_err}
+
+
+def train_restart(torch) -> dict:
+    """The reference's restart-equivalence shape on the card, reduced
+    InternLM2 at bf16 parameters: 12 steps, checkpoints every 4, a failure
+    at step 6, the resumed run's final loss against an uninterrupted one."""
+    import shutil
+
+    from repro_torch.configs.registry import get_config, reduced
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.model import RunOptions
+    from repro_torch.runtime.trainer import (SimulatedFailure, Trainer,
+                                             TrainerConfig)
+
+    cfg = reduced(get_config(ARCH))
+    dc = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2)
+    opts = RunOptions(attn_chunk=32, remat="none")       # bf16
+
+    def trainer(name, **kw):
+        d = OUT / f"train_restart_{name}"
+        return Trainer(cfg, dc, TrainerConfig(
+            steps=12, ckpt_every=4, ckpt_dir=str(d), log_every=100, **kw),
+            opts, log_fn=log, device="cuda")
+
+    for name in ("a", "b"):
+        shutil.rmtree(OUT / f"train_restart_{name}", ignore_errors=True)
+    ra = trainer("a").run()
+    try:
+        trainer("b", fail_at_step=6).run()
+        raise AssertionError("the injected failure did not fire")
+    except SimulatedFailure:
+        pass
+    rb = trainer("b").run()
+    diff = abs(ra["final_loss"] - rb["final_loss"])
+    log(f"[train] reduced {ARCH} bf16 restart: uninterrupted final loss "
+        f"{ra['final_loss']:.7f}, resumed ({rb['steps_run']} steps after "
+        f"the step-4 checkpoint) {rb['final_loss']:.7f}, |diff| {diff:.3e} "
+        f"(tol {RESTART_ATOL})")
+    if not (diff <= RESTART_ATOL and rb["steps_run"] == 8):
+        raise AssertionError("the resumed run does not repeat the "
+                             "uninterrupted one")
+    for name in ("a", "b"):
+        shutil.rmtree(OUT / f"train_restart_{name}", ignore_errors=True)
+    return {"final_loss": ra["final_loss"], "resumed_final_loss":
+            rb["final_loss"], "abs_diff": diff}
+
+
+def train_full_width(torch, peaks, smi: str) -> dict:
+    """Full-width InternLM2-1.8B in bf16 at the CLI's defaults (B = 8,
+    S = 128): 8 AdamW steps, a checkpoint at step 4, one more step with
+    int8 compression; timed with the device synchronised per step."""
+    import dataclasses
+    import gc
+    import shutil
+
+    from repro_torch.checkpoint import checkpointing as ckpt
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.model import RunOptions
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import (Trainer, TrainerConfig,
+                                             deterministic)
+
+    cfg = get_config(ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt_dir = OUT / "train_full_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tr = Trainer(cfg, DataConfig(vocab=cfg.vocab, seq_len=FULL_SEQ,
+                                 global_batch=FULL_BATCH),
+                 TrainerConfig(seed=SEED), RunOptions(remat="none"),
+                 adamw.AdamWConfig(lr=3e-3, warmup_steps=20,
+                                   total_steps=FULL_STEPS), log_fn=log,
+                 device="cuda")
+    state = tr.init_state()
+    rows, step_ms, save_s = [], [], None
+    with deterministic(tr.device):
+        for step in range(FULL_STEPS + 1):
+            if step == FULL_STEPS:     # one more step, gradients compressed
+                tr.opt_cfg = dataclasses.replace(tr.opt_cfg,
+                                                 compress_grads=True)
+                state["err_fb"] = adamw.init_error_feedback(state["params"])
+            batch = tr.data.batch(step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr.train_step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            rows.append((float(m["loss"]), float(m["grad_norm"])))
+            if step + 1 == FULL_CKPT_AT:
+                t0 = time.perf_counter()
+                ckpt.save(ckpt_dir, step + 1, state)
+                save_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    timed = step_ms[FULL_WARMUP:FULL_STEPS]
+    med = statistics.median(timed)
+    tokens = FULL_BATCH * FULL_SEQ
+    # N counts the parameters that enter a matmul: an untied input
+    # embedding is a gather and does none
+    n_mm = cfg.n_params - (0 if cfg.tie_embeddings
+                           else cfg.vocab * cfg.d_model)
+    mfu = 6.0 * n_mm * tokens / (med * 1e-3) / peaks.peak_flops
+    ck_gb = sum(p.stat().st_size for p in
+                (ckpt_dir / f"step_{FULL_CKPT_AT:08d}").iterdir()) / 1e9
+    restored = ckpt.latest_step(ckpt_dir)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    del state, tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[train] full-width {ARCH} bf16 B={FULL_BATCH} S={FULL_SEQ}: "
+        f"losses {[round(l, 4) for l, _ in rows]}, grad norms "
+        f"{[round(g, 4) for _, g in rows]} (last step int8-compressed)")
+    log(f"[train] step ms {[round(t, 3) for t in step_ms]}; median of "
+        f"steps {FULL_WARMUP}-{FULL_STEPS - 1}: {med:.3f} ms, "
+        f"{tokens / (med * 1e-3):.1f} tokens/s, peak allocated "
+        f"{peak / 2**30:.3f} GiB, 6*N*tokens/step/bf16 peak "
+        f"{mfu:.4f} (N = {n_mm}, the input embedding left out; peak "
+        f"{peaks.peak_flops:.3e} "
+        f"FLOP/s); checkpoint at step {FULL_CKPT_AT}: {ck_gb:.3f} GB in "
+        f"{save_s:.1f}s; card: {smi}")
+    if not (all(math.isfinite(l) and math.isfinite(g) for l, g in rows)
+            and restored == FULL_CKPT_AT):
+        raise AssertionError("full-width training: non-finite loss or grad "
+                             "norm, or no checkpoint")
+    return {"losses": [l for l, _ in rows], "grad_norms": [g for _, g in rows],
+            "step_ms": step_ms, "median_step_ms": med,
+            "tokens_per_s": tokens / (med * 1e-3), "peak_bytes": peak,
+            "model_flops_share": mfu, "n_params": cfg.n_params,
+            "n_matmul_params": n_mm,
+            "checkpoint_gb": ck_gb, "checkpoint_s": save_s}
+
+
+def train_phase(torch, peaks, smi: str, counters: dict) -> dict:
+    for fn in counters.values():
+        fn.launches = 0
+    out = {arch: train_card_vs_cpu(torch, arch) for arch in TRAIN_ARCHS}
+    out["restart"] = train_restart(torch)
+    out["full_width"] = train_full_width(torch, peaks, smi)
+    launches = {n: fn.launches for n, fn in counters.items()}
+    if any(launches.values()):
+        raise AssertionError(f"training launched kernels: {launches}")
+    log(f"[train] launches {launches}: training runs no kernel, as the "
+        f"reference's")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--wkv6-previous", metavar="CU",
@@ -751,6 +1026,8 @@ def main() -> int:
                     "interface without VB, P and CPT), timed beside the "
                     "package's kernel at the serving shapes")
     args = ap.parse_args()
+    # before CUDA initialises: training runs deterministic algorithms
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     try:
         import torch
     except ImportError:
@@ -823,7 +1100,11 @@ def main() -> int:
     # Hymba runs no kernel, as in the reference: every counter stays at 0
     serve(torch, HYMBA_ARCH, get_config(HYMBA_ARCH), counters, {})
 
-    # 5. report
+    # 5. emulate, 6. train: neither launches a kernel
+    emulated = emulate_phase(name, counters)
+    trained = train_phase(torch, peaks, smi, counters)
+
+    # 7. report
     big = timing[max(BATCHES)]
     kernels = []
     for kname, chk, src, rep in (
@@ -845,6 +1126,7 @@ def main() -> int:
             "library_ms": r["library_ms"], "shape": r["shape"]})
     with open(OUT / "chip_smoke.json", "w") as f:
         json.dump({"kernels": kernels, "timing": timing,
+                   "emulate": emulated, "train": trained,
                    "device": name, "nvidia_smi": smi}, f, indent=2)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

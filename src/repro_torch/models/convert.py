@@ -11,12 +11,14 @@ import numpy as np
 import torch
 
 
-def _flatten(tree, prefix=""):
+def flat_items(tree, prefix=""):
+    """(path name, leaf) of a nested dict, keys sorted at every level as
+    the reference's tree flattening orders them."""
     for key in sorted(tree):
         val = tree[key]
         name = f"{prefix}{key}"
         if isinstance(val, dict):
-            yield from _flatten(val, f"{name}/")
+            yield from flat_items(val, f"{name}/")
         else:
             yield name, val
 
@@ -28,7 +30,7 @@ def params_from_reference(np_tree: dict, dtype=None,
     Arrays of a dtype numpy itself lacks (bfloat16) pass through float32.
     ``dtype`` casts every leaf; by default each keeps its own."""
     out = {}
-    for name, leaf in _flatten(np_tree):
+    for name, leaf in flat_items(np_tree):
         arr = np.asarray(leaf)
         src_bf16 = arr.dtype.name == "bfloat16"
         if src_bf16:

@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.configs.registry import ModelConfig
 from repro_torch.models import kvcache
 from repro_torch.models import layers as L
+from repro_torch.models import transformer
 from repro_torch.models.transformer import RunOptions
 
 SSM_CHUNK = 256
@@ -247,43 +248,53 @@ def _pack_ring(ring, new):
 # ---------------------------------------------------------------------------
 # Model API
 # ---------------------------------------------------------------------------
-def _layer(params, i) -> dict:
-    return {k[len("layers/"):]: v[i] for k, v in params.items()
-            if k.startswith("layers/")}
-
-
 def _stack(cfg, params, x, cache, t, opts):
     """Every layer over x, each starting from its SSM state in ``cache``
-    and writing the new state and its ring back in place."""
-    for i in range(cfg.n_layers):
-        x, k, v, h_fin = layer(cfg, _layer(params, i), x, cache["k"][i],
-                               cache["v"][i], cache["ssm"][i], t, opts)
-        if t is None:
-            _pack_ring(cache["k"][i], k)
-            _pack_ring(cache["v"][i], v)
-        cache["ssm"][i].copy_(h_fin)
+    and writing the new state and its ring back in place.  With ``cache``
+    None (train and hidden modes) every layer starts from a zero state and
+    nothing is written, so autograd can run through the stack."""
+    if cache is None:
+        zero = torch.zeros((x.shape[0], cfg.d_model, cfg.ssm_state),
+                           dtype=torch.float32, device=x.device)
+        for w in transformer.unstack_layers(params):
+            x = transformer.remat_layer(layer, opts, cfg, w, x, None, None,
+                                        zero, None, opts)[0]
+    else:
+        for i, w in enumerate(transformer.unstack_layers(params)):
+            x, k, v, h_fin = layer(cfg, w, x, cache["k"][i], cache["v"][i],
+                                   cache["ssm"][i], t, opts)
+            if t is None:
+                _pack_ring(cache["k"][i], k)
+                _pack_ring(cache["v"][i], v)
+            cache["ssm"][i].copy_(h_fin)
     return L.rms_norm(x, params["final_norm_scale"])
 
 
 def forward(cfg: ModelConfig, params: dict, tokens, prefix_embeds=None,
             opts: RunOptions = RunOptions(), mode: str = "prefill",
             cache: Optional[dict] = None, max_len: Optional[int] = None):
-    """mode='prefill': (last_logits (B, V) fp32, cache);
+    """mode='train': (logits (B, S, V) fp32, 0.0);
+    mode='prefill': (last_logits (B, V) fp32, cache);
     mode='hidden': (hidden (B, S, D), 0.0).
 
     Prefill starts from a zero SSM state, as the reference's does: a
     passed ``cache`` (an executor reuses one per batch bucket) has its
     state zeroed in place first, and its ring must be ``cache_len(cfg, S,
     "window")`` slots wide, the width the reference's prefill packs.
+    Train and hidden modes take no cache and write none.
     ``prefix_embeds`` and ``max_len`` are ignored, as in the reference."""
-    if mode == "train":
-        raise NotImplementedError("train mode is not ported yet "
-                                  "(ROADMAP item 5, training substrate)")
-    if mode not in ("prefill", "hidden"):
+    if mode not in ("train", "prefill", "hidden"):
         raise ValueError(f"unknown mode {mode!r}")
+    if mode != "prefill" and cache is not None:
+        raise ValueError(f"{mode} mode writes no cache")
     b, s = tokens.shape
     x = params["embed"][tokens].to(opts.act_dtype)
-    if cache is None or mode == "hidden":
+    if mode != "prefill":
+        x = _stack(cfg, params, x, None, None, opts)
+        if mode == "hidden":
+            return x, 0.0
+        return (x @ params["lm_head"].T).float(), 0.0
+    if cache is None:
         cache = init_cache(cfg, b, s, opts, device=x.device)
     else:
         want = kvcache.cache_len(cfg, s, "window")
@@ -293,8 +304,6 @@ def forward(cfg: ModelConfig, params: dict, tokens, prefix_embeds=None,
                              f"{cache['k'].shape[2]}")
         cache["ssm"].zero_()
     x = _stack(cfg, params, x, cache, None, opts)
-    if mode == "hidden":
-        return x, 0.0
     cache["t"].fill_(s)
     return (x[:, -1] @ params["lm_head"].T).float(), cache
 
@@ -309,3 +318,11 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens,
     logits = (x[:, 0] @ params["lm_head"].T).float()
     cache["t"].add_(1)
     return logits, cache
+
+
+def lm_loss(cfg: ModelConfig, params: dict, tokens, labels,
+            prefix_embeds=None, opts: RunOptions = RunOptions()):
+    """Chunked cross-entropy over the hidden states (as the reference,
+    ``prefix_embeds`` is ignored)."""
+    x, _ = forward(cfg, params, tokens, None, opts, "hidden")
+    return transformer.chunked_lm_loss(x, params["lm_head"], labels, opts)

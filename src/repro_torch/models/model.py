@@ -1,18 +1,20 @@
 """Model facade over the ported families.
 
-``Model(cfg, opts, device)`` exposes the step functions the serving layer
-and the tests use:
+``Model(cfg, opts, device)`` exposes the step functions the serving layer,
+the trainer and the tests use:
 
+    loss(params, batch)                     -> scalar          (train)
+    forward(params, batch)                  -> (logits, aux)   (train)
     prefill(params, batch, max_len, cache)  -> (logits, cache)
     decode(params, cache, tokens)           -> (logits, cache)
     hidden(params, batch)                   -> hidden states
     param_specs() / init(seed)
     cache_specs(batch, max_len) / init_cache(batch, max_len)
 
-Batches are dicts: {"tokens": (B, S) int, ["prefix_embeds": (B, P, D)]}.
-The transformer families, rwkv6 (ssm) and hymba (hybrid) work; MoE
-configs raise NotImplementedError until their slice lands (ROADMAP
-item 3).
+Batches are dicts: {"tokens": (B, S) int, ["labels": (B, S) int],
+["prefix_embeds": (B, P, D)]}.  The transformer families, rwkv6 (ssm) and
+hymba (hybrid) work; MoE configs raise NotImplementedError until their
+slice lands (ROADMAP item 3).
 """
 from __future__ import annotations
 
@@ -63,6 +65,15 @@ class Model:
         return self._m.init_params(self.cfg, g, self.opts, self.device)
 
     # ---- steps ------------------------------------------------------------
+    def loss(self, params, batch):
+        return self._m.lm_loss(self.cfg, params, batch["tokens"],
+                               batch["labels"], batch.get("prefix_embeds"),
+                               opts=self.opts)
+
+    def forward(self, params, batch):
+        return self._m.forward(self.cfg, params, batch["tokens"],
+                               batch.get("prefix_embeds"), self.opts, "train")
+
     def prefill(self, params, batch, max_len: Optional[int] = None,
                 cache: Optional[dict] = None):
         return self._m.forward(self.cfg, params, batch["tokens"],

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.registry import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import transformer
 from repro_torch.models.transformer import RunOptions
 
 LORA_MIX = 32       # rank of the ddlerp mix lora
@@ -240,19 +241,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 # ---------------------------------------------------------------------------
 # Model API
 # ---------------------------------------------------------------------------
-def _layer(params, i) -> dict:
-    return {k[len("layers/"):]: v[i] for k, v in params.items()
-            if k.startswith("layers/")}
-
-
 def _stack(cfg, params, x, cache, opts):
     """Every layer over x, reading each layer's state from ``cache`` and
-    writing the new one back in place."""
-    for i in range(cfg.n_layers):
-        state = {name: cache[name][i] for name in ("wkv", "tm", "cm")}
-        x, new = layer_full(cfg, _layer(params, i), x, state, opts)
-        for name, val in new.items():
-            cache[name][i].copy_(val)
+    writing the new one back in place.  With ``cache`` None (train and
+    hidden modes) every layer starts from a zero state and nothing is
+    written, so autograd can run through the stack."""
+    if cache is None:
+        b = x.shape[0]
+        zero = {"wkv": torch.zeros((b, cfg.n_heads, cfg.d_head, cfg.d_head),
+                                   dtype=torch.float32, device=x.device),
+                "tm": torch.zeros((b, cfg.d_model), dtype=x.dtype,
+                                  device=x.device)}
+        zero["cm"] = zero["tm"]
+        for w in transformer.unstack_layers(params):
+            x = transformer.remat_layer(layer_full, opts, cfg, w, x, zero,
+                                        opts)[0]
+    else:
+        for i, w in enumerate(transformer.unstack_layers(params)):
+            state = {name: cache[name][i] for name in ("wkv", "tm", "cm")}
+            x, new = layer_full(cfg, w, x, state, opts)
+            for name, val in new.items():
+                cache[name][i].copy_(val)
     x = L.layer_norm(x, params["final_norm_scale"],
                      params["final_norm_bias"])
     return x
@@ -261,28 +270,33 @@ def _stack(cfg, params, x, cache, opts):
 def forward(cfg: ModelConfig, params: dict, tokens, prefix_embeds=None,
             opts: RunOptions = RunOptions(), mode: str = "prefill",
             cache: Optional[dict] = None, max_len: Optional[int] = None):
-    """mode='prefill': (last_logits (B, V) fp32, cache);
+    """mode='train': (logits (B, S, V) fp32, 0.0);
+    mode='prefill': (last_logits (B, V) fp32, cache);
     mode='hidden': (hidden (B, S, D), 0.0).
 
     Prefill starts from a zero state, as the reference's does: a passed
     ``cache`` is zeroed in place first (an executor reuses one cache per
     batch bucket), then holds the final states, with ``t`` set to S.
+    Train and hidden modes take no cache and write none.
     ``prefix_embeds`` and ``max_len`` are ignored, as in the reference."""
-    if mode == "train":
-        raise NotImplementedError("train mode is not ported yet "
-                                  "(ROADMAP item 5, training substrate)")
-    if mode not in ("prefill", "hidden"):
+    if mode not in ("train", "prefill", "hidden"):
         raise ValueError(f"unknown mode {mode!r}")
+    if mode != "prefill" and cache is not None:
+        raise ValueError(f"{mode} mode writes no cache")
     b, s = tokens.shape
     x = params["embed"][tokens].to(opts.act_dtype)
-    if cache is None or mode == "hidden":
+    if mode != "prefill":
+        transformer.check_differentiable(params, opts)
+        x = _stack(cfg, params, x, None, opts)
+        if mode == "hidden":
+            return x, 0.0
+        return (x @ params["lm_head"].T).float(), 0.0
+    if cache is None:
         cache = init_cache(cfg, b, s, opts, device=x.device)
     else:
         for name in ("wkv", "tm", "cm"):
             cache[name].zero_()
     x = _stack(cfg, params, x, cache, opts)
-    if mode == "hidden":
-        return x, 0.0
     cache["t"].fill_(s)
     return (x[:, -1] @ params["lm_head"].T).float(), cache
 
@@ -296,3 +310,11 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens,
     logits = (x[:, 0] @ params["lm_head"].T).float()
     cache["t"].add_(1)
     return logits, cache
+
+
+def lm_loss(cfg: ModelConfig, params: dict, tokens, labels,
+            prefix_embeds=None, opts: RunOptions = RunOptions()):
+    """Chunked cross-entropy over the hidden states (as the reference,
+    ``prefix_embeds`` is ignored)."""
+    x, _ = forward(cfg, params, tokens, None, opts, "hidden")
+    return transformer.chunked_lm_loss(x, params["lm_head"], labels, opts)

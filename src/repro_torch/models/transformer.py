@@ -7,14 +7,19 @@ them (PyTorch runs eagerly, so the reference's ``lax.scan`` has no
 counterpart to preserve).
 
 Modes:
+  * train   — full-sequence fp32 logits, no cache (:func:`lm_loss` takes
+    the hidden states instead and runs :func:`chunked_lm_loss`).
   * prefill — forward over the prompt, KV cache written, last-token logits.
   * hidden  — final-norm hidden states of the whole sequence.
   * decode  — one token against the cache (:func:`decode_step`), which
     writes the cache and advances its position ``t`` in place, with ``t``
     kept on the device so a decode loop never syncs with the host.
 
-Sliding-window and chunked-local ring caches and MoE layers (ROADMAP
-item 3), and train mode with its loss (item 5), raise NotImplementedError.
+Train and hidden modes allocate and write no cache, so autograd runs
+through them; with ``RunOptions.remat == "full"`` each layer is
+recomputed in backward (``torch.utils.checkpoint``) when gradients are
+being recorded.  Sliding-window and chunked-local ring caches and MoE
+layers raise NotImplementedError (ROADMAP item 3).
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import dataclasses
 from typing import Any, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.registry import ModelConfig
 from repro_torch.models import kvcache
@@ -32,9 +38,11 @@ from repro_torch.models import layers as L
 class RunOptions:
     """Runtime (not architecture) options."""
     attn_chunk: int = 1024
+    remat: str = "full"            # full | none (per-layer recompute)
     param_dtype: Any = torch.bfloat16
     act_dtype: Any = torch.bfloat16
     use_kernels: bool = False      # CUDA kernels vs the plain attention
+    logit_chunk: int = 512         # CE loss seq-chunking (memory control)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -47,9 +55,26 @@ def _check_supported(cfg: ModelConfig) -> None:
             f"not ported yet (ROADMAP item 3)")
 
 
-def chunked_lm_loss(*args, **kwargs):
-    raise NotImplementedError("the LM loss is not ported yet "
-                              "(ROADMAP item 5, training substrate)")
+def chunked_lm_loss(x, head, labels, opts: RunOptions):
+    """Cross-entropy without materialising full-sequence logits.
+
+    x: (B, S, D); head: (V, D); labels: (B, S) int.  Chunks of
+    ``opts.logit_chunk`` positions (a shorter tail chunk when S is not a
+    multiple): per chunk the (B, C, V) fp32 logits are built and reduced
+    to sum(logsumexp - label logit); the total is divided by B * S."""
+    b, s, _ = x.shape
+    c = min(opts.logit_chunk, s)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for start in range(0, s, c):
+        logits = _logits(x[:, start:start + c], head)       # (B, C, V)
+        logz = torch.logsumexp(logits, dim=-1)
+        # the label's logit by mask and sum, as the reference takes it:
+        # its backward is elementwise, with no scatter of atomics
+        iota = torch.arange(logits.shape[-1], device=x.device)
+        hit = iota == labels[:, start:start + c, None]
+        ll = torch.where(hit, logits, torch.zeros_like(logits)).sum(-1)
+        total = total + (logz - ll).sum()
+    return total / (b * s)
 
 
 # ---------------------------------------------------------------------------
@@ -202,9 +227,15 @@ def _attn_decode(cfg, w, x, k_cache, v_cache, t, opts):
     return o @ w["wo"]
 
 
-def _layer(params, i, j) -> dict:
-    return {k[len("layers/"):]: v[i, j] for k, v in params.items()
-            if k.startswith("layers/")}
+def unstack_layers(params: dict, n_lead: int = 1) -> list[dict]:
+    """Every layer's weights, one dict a layer (views), by ``unbind`` over
+    the ``n_lead`` stacking dims.  Its backward stacks the per-layer
+    gradients once, where selecting layer by layer would add a zero-filled
+    gradient of the whole stack for every layer."""
+    names = [k for k in params if k.startswith("layers/")]
+    cols = [params[k].flatten(0, n_lead - 1).unbind(0) for k in names]
+    return [{k[len("layers/"):]: c[i] for k, c in zip(names, cols)}
+            for i in range(len(cols[0]))]
 
 
 def _head(cfg, params):
@@ -227,40 +258,66 @@ def _embed(cfg, params, tokens, prefix_embeds, opts):
     return x
 
 
+def _sublayer(cfg, w, x, opts):
+    """One layer over the full sequence.  Returns (x, k, v)."""
+    a, k, v = _attn_full_seq(cfg, w, _norm(cfg, w, "ln1", x), opts)
+    x = x + a
+    return x + _mlp(cfg, w, _norm(cfg, w, "ln2", x)), k, v
+
+
+def check_differentiable(params: dict, opts: RunOptions) -> None:
+    """The CUDA kernels have no backward: refuse them under autograd."""
+    if opts.use_kernels and torch.is_grad_enabled() and any(
+            p.requires_grad for p in params.values()):
+        raise ValueError("the CUDA kernels have no backward; take "
+                         "gradients with use_kernels=False, as the "
+                         "reference's trainer does")
+
+
+def remat_layer(fn, opts: RunOptions, *args):
+    """``fn(*args)``, recomputed in backward when ``opts.remat`` is "full"
+    and autograd is recording."""
+    if opts.remat == "full" and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
+
+
 def forward(cfg: ModelConfig, params: dict, tokens,
             prefix_embeds=None, opts: RunOptions = RunOptions(),
             mode: str = "prefill", cache: Optional[dict] = None,
             max_len: Optional[int] = None):
-    """mode='prefill': (last_logits (B, V) fp32, cache);
+    """mode='train': (logits (B, S, V) fp32, aux 0.0);
+    mode='prefill': (last_logits (B, V) fp32, cache);
     mode='hidden': (hidden (B, S, D), 0.0).
 
     In prefill mode ``cache`` (from :func:`init_cache`, with room for
     ``max_len`` positions) is written in place; without one a fresh cache
-    is allocated."""
-    if mode == "train":
-        raise NotImplementedError("train mode is not ported yet "
-                                  "(ROADMAP item 5, training substrate)")
-    if mode not in ("prefill", "hidden"):
+    is allocated.  Train and hidden modes take no cache."""
+    if mode not in ("train", "prefill", "hidden"):
         raise ValueError(f"unknown mode {mode!r}")
+    if mode != "prefill" and cache is not None:
+        raise ValueError(f"{mode} mode writes no cache")
     _check_supported(cfg)
-    n_macro, m, _ = macro_shape(cfg)
+    if mode != "prefill":
+        check_differentiable(params, opts)
+    _, m, _ = macro_shape(cfg)
     x = _embed(cfg, params, tokens, prefix_embeds, opts)
     b, s, _ = x.shape
     if mode == "prefill" and cache is None:
         cache = init_cache(cfg, b, max_len if max_len is not None else s,
                            opts, device=x.device)
-    for i in range(n_macro):
-        for j in range(m):
-            w = _layer(params, i, j)
-            h = _norm(cfg, w, "ln1", x)
-            a, k, v = _attn_full_seq(cfg, w, h, opts)
-            if mode == "prefill":
-                _fill_cache(cache, i, j, k, v)
-            x = x + a
-            x = x + _mlp(cfg, w, _norm(cfg, w, "ln2", x))
+    for idx, w in enumerate(unstack_layers(params, 2)):
+        if mode == "prefill":
+            x, k, v = _sublayer(cfg, w, x, opts)
+            _fill_cache(cache, *divmod(idx, m), k, v)
+        else:
+            x = remat_layer(_sublayer, opts, cfg, w, x, opts)[0]
     x = _norm(cfg, params, "final_norm", x)
     if mode == "hidden":
         return x, 0.0
+    if mode == "train":
+        return _logits(x, _head(cfg, params)), 0.0
     cache["t"].fill_(s)
     return _logits(x[:, -1], _head(cfg, params)), cache
 
@@ -286,17 +343,29 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens,
     """tokens: (B, 1) int.  Returns (logits (B, V) fp32, cache), the cache
     written at slot ``t`` and ``t`` advanced, in place."""
     _check_supported(cfg)
-    n_macro, m, _ = macro_shape(cfg)
+    _, m, _ = macro_shape(cfg)
     t = cache["t"]
     x = params["embed"][tokens[:, :1]].to(opts.act_dtype)
-    for i in range(n_macro):
-        for j in range(m):
-            w = _layer(params, i, j)
-            h = _norm(cfg, w, "ln1", x)
-            x = x + _attn_decode(cfg, w, h, cache["k"][i, j],
-                                 cache["v"][i, j], t, opts)
-            x = x + _mlp(cfg, w, _norm(cfg, w, "ln2", x))
+    for idx, w in enumerate(unstack_layers(params, 2)):
+        i, j = divmod(idx, m)
+        h = _norm(cfg, w, "ln1", x)
+        x = x + _attn_decode(cfg, w, h, cache["k"][i, j],
+                             cache["v"][i, j], t, opts)
+        x = x + _mlp(cfg, w, _norm(cfg, w, "ln2", x))
     x = _norm(cfg, params, "final_norm", x)
     logits = _logits(x[:, 0], _head(cfg, params))
     t.add_(1)
     return logits, cache
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+def lm_loss(cfg: ModelConfig, params: dict, tokens, labels,
+            prefix_embeds=None, opts: RunOptions = RunOptions()):
+    """Chunked cross-entropy over the token positions (the prefix
+    positions of the vlm family are dropped first)."""
+    x, _ = forward(cfg, params, tokens, prefix_embeds, opts, "hidden")
+    if prefix_embeds is not None:           # loss only over token positions
+        x = x[:, prefix_embeds.shape[1]:]
+    return chunked_lm_loss(x, _head(cfg, params), labels, opts)

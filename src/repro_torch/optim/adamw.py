@@ -1,0 +1,126 @@
+"""AdamW with cosine schedule, global-norm clipping and optional int8
+gradient compression (error feedback) for the data-parallel all-reduce.
+
+Functional over the port's flat parameter dicts: ``init`` builds the
+(fp32) moment state; ``update`` writes the new values into the tensors it
+is given (as the reference's step donates its buffers to XLA), so a step
+holds one copy of the optimizer state, and returns them.  The compression
+path quantises gradients to int8 with a per-tensor scale *before* they
+would cross the DP axis and keeps the residual locally (error feedback),
+the standard bandwidth/quality trade [1-bit Adam, arXiv:2102.02888-style].
+
+The arithmetic follows the reference in its order and in fp32: fp32
+grads, global norm, clip, bias correction with the step as fp32,
+decoupled weight decay on the fp32 copy of each parameter, cast back to
+its dtype.  The step, the learning rate and the norm stay tensors on the
+parameters' device, so an update never syncs with the host.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    compress_grads: bool = False      # int8 + error feedback across DP
+
+
+def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Learning rate at ``step`` (an integer tensor), in fp32: linear
+    warmup, then a cosine decay to 0.1 x ``lr``."""
+    step = step.float()
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    prog = torch.clamp((step - cfg.warmup_steps) /
+                       max(cfg.total_steps - cfg.warmup_steps, 1), 0.0, 1.0)
+    cos = 0.5 * (1.0 + torch.cos(math.pi * prog))
+    return cfg.lr * warm * (0.1 + 0.9 * cos)
+
+
+def init(params: dict) -> dict:
+    device = next(iter(params.values())).device
+    return {
+        "m": init_error_feedback(params),
+        "v": init_error_feedback(params),
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def init_error_feedback(params: dict) -> dict:
+    """fp32 zeros shaped like each parameter."""
+    return {k: torch.zeros_like(p, dtype=torch.float32)
+            for k, p in params.items()}
+
+
+def compress_int8(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8 quantisation.  ``torch.round`` rounds
+    half to even, as ``jnp.round`` does."""
+    scale = torch.clamp(g.abs().max(), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def decompress_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale
+
+
+def compress_residual(g: torch.Tensor, err: torch.Tensor):
+    """Quantise (g + err); return (dequantised g_hat, new residual)."""
+    g32 = g.float() + err
+    q, scale = compress_int8(g32)
+    g_hat = decompress_int8(q, scale)
+    return g_hat, g32 - g_hat
+
+
+@torch.no_grad()
+def update(cfg: AdamWConfig, params: dict, grads: dict, state: dict,
+           error_feedback: Optional[dict] = None):
+    """Returns (params', state', error_feedback', metrics), updated in
+    place: the dicts hold the tensors that were passed in, and
+    ``state["step"]`` is a new 0-d tensor.  ``metrics`` holds the global
+    grad norm and the learning rate as 0-d tensors."""
+    names = sorted(params)          # the reference's leaf order
+    if cfg.compress_grads:
+        if error_feedback is None:
+            raise ValueError("compress_grads needs an error-feedback state "
+                             "(init_error_feedback)")
+        grads = dict(grads)
+        for k in names:
+            grads[k], err = compress_residual(grads[k], error_feedback[k])
+            error_feedback[k].copy_(err)
+
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(grads[k].float()))
+                           for k in names))
+    scale_clip = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
+                             max=1.0)
+
+    step = state["step"] + 1
+    lr = schedule(cfg, step)
+    b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, device=step.device),
+                          step.float())
+    b2c = 1.0 - torch.pow(torch.tensor(cfg.b2, device=step.device),
+                          step.float())
+
+    for k in names:
+        p, m, v = params[k], state["m"][k], state["v"][k]
+        g = grads[k].float() * scale_clip
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
+        v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
+        p32 = p.float()
+        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) + \
+            cfg.weight_decay * p32
+        p.copy_(p32 - lr * delta)
+    new_state = {"m": state["m"], "v": state["v"], "step": step}
+    metrics = {"grad_norm": gnorm, "lr": lr}
+    return params, new_state, error_feedback, metrics

@@ -1,9 +1,10 @@
-"""The port stands alone: it imports neither JAX nor the reference package.
+"""The port stands alone: it imports neither JAX (nor its ``ml_dtypes``)
+nor the reference package.
 
 ``repro_torch`` keeps its own copy of the numpy control plane, so a fresh
 interpreter that imports every port module (and ``chip_smoke.py``) must
-end with no ``jax`` and no ``repro`` module loaded; a source scan backs
-the runtime check up for imports inside functions.
+end with no ``jax``, ``ml_dtypes`` or ``repro`` module loaded; a source
+scan backs the runtime check up for imports inside functions.
 """
 from __future__ import annotations
 
@@ -35,8 +36,8 @@ sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]
 for name in {_port_modules()!r} + ["chip_smoke"]:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m == "jax" or m.startswith("jax.") or m == "repro"
-             or m.startswith("repro."))
+             if m in ("jax", "ml_dtypes", "repro")
+             or m.startswith(("jax.", "ml_dtypes.", "repro.")))
 print(json.dumps(bad))
 """
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -46,7 +47,8 @@ print(json.dumps(bad))
 
 
 FORBIDDEN = re.compile(
-    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro(\.|\s|$)"
+    r"^\s*(import\s+(jax|ml_dtypes)\b|from\s+(jax|ml_dtypes)\b"
+    r"|import\s+repro(\.|\s|$)"
     r"|from\s+repro(\.|\s)|import_module\(f?[\"']repro\.)", re.M)
 
 

@@ -328,9 +328,14 @@ def test_full_width_cache_specs_match_reference():
 
 
 def test_train_mode_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        hymba.forward(reduced(get_config(ARCH)), {},
-                      torch.zeros((1, 4), dtype=torch.long), mode="train")
+    """Train mode writes no cache: handed one it raises, as an unknown
+    mode does (tests/test_torch_train.py trains through it)."""
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(ValueError, match="writes no cache"):
+        hymba.forward(reduced(get_config(ARCH)), {}, toks, mode="train",
+                      cache={})
+    with pytest.raises(ValueError, match="unknown mode"):
+        hymba.forward(reduced(get_config(ARCH)), {}, toks, mode="trian")
 
 
 def test_model_defaults_to_cuda():

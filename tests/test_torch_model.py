@@ -149,10 +149,20 @@ def test_unported_families_raise(arch):
 
 
 def test_train_mode_raises():
+    """Train mode writes no cache (handed one it raises), refuses the CUDA
+    kernels under autograd (they have no backward), and MoE configs still
+    raise (ROADMAP item 3); tests/test_torch_train.py trains through it."""
     from repro_torch.models import transformer
     cfg = reduced(get_config("internlm2_1_8b"))
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    with pytest.raises(ValueError, match="writes no cache"):
+        transformer.forward(cfg, {}, toks, mode="train", cache={})
+    m = get_model(cfg, F32, device="cpu")
+    params = {k: v.requires_grad_(True) for k, v in m.init(0).items()}
+    with pytest.raises(ValueError, match="no backward"):
+        transformer.forward(cfg, params, toks, opts=F32, mode="train")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.forward(cfg, {}, torch.zeros((1, 4), dtype=torch.long),
+        transformer.forward(reduced(get_config("mixtral_8x22b")), {}, toks,
                             mode="train")
 
 

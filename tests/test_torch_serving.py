@@ -141,9 +141,11 @@ def test_serve_real_on_cpu_end_to_end(tmp_path, arch):
 
 
 def test_serve_cli_refuses_emulate_mode():
+    """Emulate mode is the CLI's default now; it still refuses a mode it
+    cannot run, as the reference's does: calibration needs ESG."""
     from repro_torch.launch.serve import main
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        main([])
+    with pytest.raises(SystemExit, match="requires the ESG scheduler"):
+        main(["--scheduler", "infless", "--calibrate", "--n", "4"])
 
 
 # ---- roofline -------------------------------------------------------------
