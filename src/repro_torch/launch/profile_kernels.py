@@ -49,7 +49,8 @@ def roofline_check(executor, bucket: int, measured_ms: float,
     terms = roofline(cfg, shape,
                      flops_per_device=model_flops(cfg, shape),
                      bytes_upper=0.0,       # analytic memory model only
-                     wire_bytes_per_device=0.0, n_chips=1, peaks=peaks)
+                     wire_bytes_per_device=0.0, n_chips=1, peaks=peaks,
+                     model_axis=1)
     bound_ms = terms.bound_s * 1e3
     if stage == "decode":                  # per decode step
         measured_ms = measured_ms / max(executor.gen_len, 1)

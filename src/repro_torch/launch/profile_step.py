@@ -21,6 +21,8 @@ profiled.
         --arch rwkv6_1_6b --batch 1 8
     PYTHONPATH=src python -m repro_torch.launch.profile_step \
         --arch hymba_1_5b --batch 1 8
+    PYTHONPATH=src python -m repro_torch.launch.profile_step \
+        --arch mixtral_8x22b --layers 12 --batch 1 8
     PYTHONPATH=src python -m repro_torch.launch.profile_step --train
 """
 from __future__ import annotations
@@ -135,6 +137,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, nargs="+", default=[1, 8])
     ap.add_argument("--prompt-len", type=int, default=128)
     ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="serve this many layers at every published width "
+                         "(default: the config's depth)")
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--out", default=None)
     ap.add_argument("--train", action="store_true",
@@ -172,10 +177,13 @@ def main(argv=None) -> dict:
         return out
     ex = TorchExecutor(args.arch, batch_lattice=tuple(args.batch),
                        quotas=(1.0,), prompt_len=args.prompt_len,
-                       gen_len=args.gen_len, device="cuda")
+                       gen_len=args.gen_len, n_layers=args.layers,
+                       device="cuda")
     ex.warmup()
-    out = {"arch": args.arch, "device": smi, "prompt_len": args.prompt_len,
-           "gen_len": args.gen_len, "buckets": {}}
+    depth = ex.cfg.n_layers
+    out = {"arch": args.arch, "n_layers": depth, "device": smi,
+           "prompt_len": args.prompt_len, "gen_len": args.gen_len,
+           "buckets": {}}
     for b in args.batch:
         rec = ex.measure(b, 1.0, reps=args.reps)
         row = {"prefill_ms": rec.prefill_ms, "decode_ms": rec.decode_ms,
@@ -183,7 +191,8 @@ def main(argv=None) -> dict:
                "profiled_pass": profile_pass(ex, b)}
         out["buckets"][b] = row
         p = row["profiled_pass"]
-        print(f"[profile-step] batch={b}: prefill {rec.prefill_ms:.3f} ms, "
+        print(f"[profile-step] {args.arch} {depth} layers batch={b}: "
+              f"prefill {rec.prefill_ms:.3f} ms, "
               f"decode {rec.decode_ms:.3f} ms ({row['decode_step_ms']:.3f} "
               f"ms/step); profiled pass {p['wall_ms']:.3f} ms, device busy "
               f"{p['device_busy_ms']} ms (share {p['device_busy_share']}), "

@@ -85,43 +85,55 @@ class RooflineTerms:
         }
 
 
-def analytic_memory_bytes(cfg, shape, n_chips: int) -> float:
+def analytic_memory_bytes(cfg, shape, n_chips: int,
+                          model_axis: int) -> float:
     """Per-device HBM traffic estimate from model arithmetic.
+
+    ``model_axis`` is the width of the mesh's model (tensor-parallel) axis:
+    the reference sizes every term for a 16-wide one, and one card is a
+    mesh of 1.  ``model_axis=16`` gives the reference's numbers, except
+    where a prefill also writes a recurrent state (below).
 
     train:   params 2B read (fwd) + 2B (bwd) + grads 2B write
              + AdamW m/v read+write fp32 (16B) + param write 2B  = 24 B/param
              + activations: ~10 residual-width passes + mlp/attn projections,
              x (fwd + bwd + remat fwd) = x3
-    prefill: params 2B + 1x activation pass + cache write (for ssm the
-             fp32 state write, B H K V 4B per layer)
+    prefill: params 2B + 1x activation pass + cache write; the ssm family
+             writes its fp32 WKV state (B H K V 4B per layer) in place of a
+             KV cache, and the hybrid family its fp32 SSM state
+             (B d_inner N 4B per layer) beside its KV cache
     decode:  params 2B + cache read/write + O(B*D) activations
     """
     p_local = cfg.n_params / n_chips
     d, f_, l = cfg.d_model, cfg.d_ff, cfg.n_layers
     act = 2  # bf16
     if shape.kind == "train":
-        b_loc = max(shape.global_batch / n_chips * 16, 1)  # dp only: B/dp
+        b_loc = max(shape.global_batch / n_chips * model_axis, 1)  # B/dp
         toks = b_loc * shape.seq_len
         per_layer = (10 * d + 3 * min(f_, f_ * (cfg.top_k if cfg.n_experts
-                                                else 1)) / 16 +
-                     3 * cfg.n_heads * cfg.d_head / 16) * act
+                                                else 1)) / model_axis +
+                     3 * cfg.n_heads * cfg.d_head / model_axis) * act
         act_bytes = toks * per_layer * l * 3.0
         return p_local * 24.0 + act_bytes
     if shape.kind == "prefill":
-        b_loc = max(shape.global_batch / min(n_chips, 16), 1)
+        b_loc = max(shape.global_batch / min(n_chips, model_axis), 1)
         toks = b_loc * shape.seq_len
         per_layer = (8 * d + 3 * (f_ if not cfg.n_experts else
-                                  f_ * cfg.top_k) / 16 +
+                                  f_ * cfg.top_k) / model_axis +
                      4 * cfg.n_kv_heads * cfg.d_head) * act
         if cfg.family == "ssm":     # one fp32 WKV state per layer, no cache
             state = b_loc * cfg.n_heads * cfg.d_head * cfg.d_head * 4 * l
             return p_local * 2.0 + toks * per_layer * l + state
         cache = toks * 2 * cfg.n_kv_heads * cfg.d_head * act * l
-        return p_local * 2.0 + toks * per_layer * l + cache / n_chips * 16
+        total = p_local * 2.0 + toks * per_layer * l + \
+            cache / n_chips * model_axis
+        if cfg.family == "hybrid":  # the SSM branch's fp32 state per layer
+            total += b_loc * d * cfg.ssm_state * 4 * l
+        return total
     # decode: weights + cache dominate
     cache_local = _cache_bytes(cfg, shape) / n_chips
     b = shape.global_batch
-    act_bytes = b * d * l * 8 * act / min(n_chips, 16)
+    act_bytes = b * d * l * 8 * act / min(n_chips, model_axis)
     return p_local * 2.0 + cache_local + act_bytes
 
 
@@ -157,9 +169,9 @@ def model_flops(cfg, shape) -> float:
 
 def roofline(cfg, shape, flops_per_device: float, bytes_upper: float,
              wire_bytes_per_device: float, n_chips: int,
-             peaks: DevicePeaks) -> RooflineTerms:
+             peaks: DevicePeaks, model_axis: int) -> RooflineTerms:
     mf = model_flops(cfg, shape)
-    mem_bytes = min(analytic_memory_bytes(cfg, shape, n_chips),
+    mem_bytes = min(analytic_memory_bytes(cfg, shape, n_chips, model_axis),
                     bytes_upper if bytes_upper > 0 else float("inf"))
     return RooflineTerms(
         compute_s=flops_per_device / peaks.peak_flops,

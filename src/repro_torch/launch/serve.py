@@ -16,8 +16,12 @@ Two modes:
     flash-attention prefill and flash-decode steps; for ``--arch
     rwkv6_1_6b``, the CUDA WKV6 kernel in prefill; for ``--arch
     hymba_1_5b``, plain PyTorch sliding-window attention and selective
-    SSM with a ring KV cache, no kernel, as in the reference).
-    ``--bench-out`` writes the predicted-vs-measured comparison.
+    SSM with a ring KV cache, no kernel, as in the reference; for
+    ``--arch mixtral_8x22b``, CUDA flash-attention prefill with the
+    sliding window, then plain ring decode and expert GEMMs).
+    ``--layers`` cuts the depth and keeps every width (full-width
+    Mixtral-8x22B fits one 80 GB card only so).  ``--bench-out`` writes
+    the predicted-vs-measured comparison.
 
     PYTHONPATH=src python -m repro_torch.launch.serve
     PYTHONPATH=src python -m repro_torch.launch.serve --scenario mmpp \
@@ -30,6 +34,8 @@ Two modes:
     PYTHONPATH=src python -m repro_torch.launch.serve --real \
         --arch hymba_1_5b --reduced --device cpu --n 8 --prompt-len 8 \
         --gen-len 2 --batches 1 2
+    PYTHONPATH=src python -m repro_torch.launch.serve --real \
+        --arch mixtral_8x22b --layers 12 --n 24
 """
 from __future__ import annotations
 
@@ -202,13 +208,15 @@ def serve_real(arch: str = "internlm2_1_8b", n_requests: int = 48,
                batches: tuple = (1, 2, 4, 8), quotas: tuple = (1.0, 0.5),
                profile_path: str | None = None, reps: int = 2,
                bench_out: str | None = None, reduced: bool = False,
+               n_layers: int | None = None,
                dtype=torch.bfloat16, device=None, log=print) -> dict:
     """Real-compute serving through the full control plane.
 
     Every request goes through the Gateway → autoscaler → ``ClusterSim``
     dispatch path; ESG_1Q plans batches against a measured profile table
     (built in-process, or loaded from ``profile_path``), and each
-    dispatched task is executed for real by ``TorchExecutor``.  Afterwards
+    dispatched task is executed for real by ``TorchExecutor``, at the
+    config's depth or at ``n_layers``.  Afterwards
     the run is replayed without the executor, and the two schedule digests
     are reported (attaching the executor must not change the schedule).
 
@@ -222,12 +230,14 @@ def serve_real(arch: str = "internlm2_1_8b", n_requests: int = 48,
     ex = TorchExecutor(arch, batch_lattice=tuple(batches),
                        quotas=tuple(quotas), prompt_len=prompt_len,
                        gen_len=gen_len, seed=seed, reduced=reduced,
-                       dtype=dtype, device=device)
-    scale = "reduced" if reduced else "full"
+                       n_layers=n_layers, dtype=dtype, device=device)
+    scale = (f"{'reduced' if reduced else 'full'}, "
+             f"{ex.cfg.n_layers} layers")
     log(f"[serve-real] warming {arch} ({scale}, {ex.dtype}, {ex.device}): "
         f"{len(ex.batch_lattice)} buckets x {len(ex.quotas)} quotas ...")
     w = ex.warmup()
-    log(f"[serve-real] warmup: {w['warmup_compiles']} cells built in "
+    log(f"[serve-real] {arch} ({scale}) warmup: {w['warmup_compiles']} "
+        f"cells built in "
         f"{w['warmup_s']:.1f}s ({w['cells']} cache cells)")
 
     if profile_path:
@@ -239,7 +249,8 @@ def serve_real(arch: str = "internlm2_1_8b", n_requests: int = 48,
     else:
         artifact = build_artifact(ex, reps=reps, log=lambda *_: None)
     table = ProfileTable.from_measured(artifact)
-    log(f"[serve-real] measured profile: lattice={table.batch_lattice} "
+    log(f"[serve-real] {arch} ({scale}) measured profile: "
+        f"lattice={table.batch_lattice} "
         f"t1={table.fn.t1_ms:.1f}ms provenance={table.fn.provenance}")
 
     sim, s = _serve_once(arch, table, scenario, n_requests, seed, slo_mult,
@@ -275,6 +286,7 @@ def serve_real(arch: str = "internlm2_1_8b", n_requests: int = 48,
         "schema": "repro.realcompute_bench.v1",
         "arch": arch,
         "reduced": reduced,
+        "n_layers": ex.cfg.n_layers,
         "scenario": scenario,
         "n_requests": n_requests,
         "seed": seed,
@@ -378,6 +390,9 @@ def main(argv=None):
                          "here")
     ap.add_argument("--reduced", action="store_true",
                     help="(--real) serve the arch's tiny same-family config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="(--real) serve this many layers at every "
+                         "published width (default: the config's depth)")
     ap.add_argument("--device", default=None,
                     help="(--real) torch device (default: cuda; 'cpu' to "
                          "run there, in float32)")
@@ -402,7 +417,7 @@ def main(argv=None):
                       batches=tuple(args.batches), quotas=tuple(args.quotas),
                       profile_path=args.profile, reps=args.reps,
                       bench_out=args.bench_out, reduced=args.reduced,
-                      dtype=torch.bfloat16 if dev.type == "cuda"
+                      n_layers=args.layers, dtype=torch.bfloat16 if dev.type == "cuda"
                       else torch.float32, device=dev)
 
 

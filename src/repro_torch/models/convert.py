@@ -3,7 +3,10 @@
 The reference keeps parameters as a nested dict of arrays; its checkpoints
 key each leaf by the '/'-joined path of dict keys (``layers/wq``,
 ``embed``, ...).  The port's parameter dict uses those same names as flat
-keys, and the leaf layouts agree, so importing is a copy of each leaf.
+keys, and the leaf layouts agree, so importing is a copy of each leaf:
+the MoE router (D, E) and experts ``moe_w1`` / ``moe_w2`` (E, D, F) and
+``moe_w3`` (E, F, D), stacked (n_macro, m, ...) like every layer leaf,
+included.
 """
 from __future__ import annotations
 

@@ -126,12 +126,12 @@ def ssm_scan(xm, dt, b_in, c_in, a_log, d_skip, h0, chunk: int = SSM_CHUNK):
     Returns (y (B, T, D) in xm's dtype, h_fin (B, D, N) fp32).  Chunks of
     ``chunk`` tokens run in order, a last shorter one as the remainder."""
     t = xm.shape[1]
-    a = -torch.exp(a_log.float())                           # (D, N) < 0
+    a = -torch.exp(L.wide(a_log))                           # (D, N) < 0
     chunk = min(chunk, t)
-    dt32 = dt.float()
+    dt32 = L.wide(dt)
     da = torch.exp(dt32[..., None] * a)                     # (B, T, D, N)
-    dbx = (dt32 * xm.float())[..., None] * b_in.float()[..., None, :]
-    c32 = c_in.float()
+    dbx = (dt32 * L.wide(xm))[..., None] * L.wide(b_in)[..., None, :]
+    c32 = L.wide(c_in)
     h, ys = h0, []
     for t0 in range(0, t, chunk):
         sl = slice(t0, t0 + chunk)
@@ -139,20 +139,20 @@ def ssm_scan(xm, dt, b_in, c_in, a_log, d_skip, h0, chunk: int = SSM_CHUNK):
         h_all = aa * h[:, None] + bb                        # (B, C, D, N)
         ys.append(torch.einsum("bcdn,bcn->bcd", h_all, c32[:, sl]))
         h = h_all[:, -1]
-    y = torch.cat(ys, dim=1) + d_skip.float() * xm.float()
+    y = torch.cat(ys, dim=1) + L.wide(d_skip) * L.wide(xm)
     return y.to(xm.dtype), h
 
 
 def ssm_step(xm, dt, b_in, c_in, a_log, d_skip, h):
     """One token.  xm/dt: (B, 1, D); b_in/c_in: (B, 1, N); h: (B, D, N)
     fp32.  Returns (y (B, 1, D) in xm's dtype, h')."""
-    a = -torch.exp(a_log.float())
-    dt32 = dt[:, 0].float()
+    a = -torch.exp(L.wide(a_log))
+    dt32 = L.wide(dt[:, 0])
     da = torch.exp(dt32[..., None] * a)
-    dbx = (dt32 * xm[:, 0].float())[..., None] * b_in[:, 0].float()[:, None]
+    dbx = (dt32 * L.wide(xm[:, 0]))[..., None] * L.wide(b_in[:, 0])[:, None]
     h = da * h + dbx
-    y = torch.einsum("bdn,bn->bd", h, c_in[:, 0].float())
-    y = y + d_skip.float() * xm[:, 0].float()
+    y = torch.einsum("bdn,bn->bd", h, L.wide(c_in[:, 0]))
+    y = y + L.wide(d_skip) * L.wide(xm[:, 0])
     return y[:, None].to(xm.dtype), h
 
 
@@ -235,16 +235,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             cache_specs(cfg, batch, max_len, opts).items()}
 
 
-def _pack_ring(ring, new):
-    """Write a layer's fresh keys or values ``new`` (B, S, KV, DH) into
-    its ``ring`` (B, W, KV, DH) in place: the last W positions, position
-    p at slot p mod W."""
-    s, w = new.shape[1], ring.shape[1]
-    if w < s:
-        new = torch.roll(new[:, s - w:], (s - w) % w, dims=1)
-    ring.copy_(new)
-
-
 # ---------------------------------------------------------------------------
 # Model API
 # ---------------------------------------------------------------------------
@@ -255,7 +245,7 @@ def _stack(cfg, params, x, cache, t, opts):
     nothing is written, so autograd can run through the stack."""
     if cache is None:
         zero = torch.zeros((x.shape[0], cfg.d_model, cfg.ssm_state),
-                           dtype=torch.float32, device=x.device)
+                           dtype=L.wide(x[:0]).dtype, device=x.device)
         for w in transformer.unstack_layers(params):
             x = transformer.remat_layer(layer, opts, cfg, w, x, None, None,
                                         zero, None, opts)[0]
@@ -264,8 +254,8 @@ def _stack(cfg, params, x, cache, t, opts):
             x, k, v, h_fin = layer(cfg, w, x, cache["k"][i], cache["v"][i],
                                    cache["ssm"][i], t, opts)
             if t is None:
-                _pack_ring(cache["k"][i], k)
-                _pack_ring(cache["v"][i], v)
+                kvcache.write_prompt(cache["k"][i], k)
+                kvcache.write_prompt(cache["v"][i], v)
             cache["ssm"][i].copy_(h_fin)
     return L.rms_norm(x, params["final_norm_scale"])
 
@@ -293,7 +283,7 @@ def forward(cfg: ModelConfig, params: dict, tokens, prefix_embeds=None,
         x = _stack(cfg, params, x, None, None, opts)
         if mode == "hidden":
             return x, 0.0
-        return (x @ params["lm_head"].T).float(), 0.0
+        return L.wide(x @ params["lm_head"].T), 0.0
     if cache is None:
         cache = init_cache(cfg, b, s, opts, device=x.device)
     else:
@@ -305,7 +295,7 @@ def forward(cfg: ModelConfig, params: dict, tokens, prefix_embeds=None,
         cache["ssm"].zero_()
     x = _stack(cfg, params, x, cache, None, opts)
     cache["t"].fill_(s)
-    return (x[:, -1] @ params["lm_head"].T).float(), cache
+    return L.wide(x[:, -1] @ params["lm_head"].T), cache
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens,
@@ -315,7 +305,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens,
     place."""
     x = params["embed"][tokens[:, :1]].to(opts.act_dtype)
     x = _stack(cfg, params, x, cache, cache["t"], opts)
-    logits = (x[:, 0] @ params["lm_head"].T).float()
+    logits = L.wide(x[:, 0] @ params["lm_head"].T)
     cache["t"].add_(1)
     return logits, cache
 

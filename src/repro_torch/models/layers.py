@@ -2,6 +2,9 @@
 
 Layouts follow the reference package: activations (B, S, H, D), KV caches
 (B, S, KV, D), projections ``x @ W`` with ``W`` of shape (d_in, d_out).
+Norm statistics, RoPE, attention scores and softmax run in float32, as in
+the reference, or in float64 when their inputs are float64 (:func:`wide`):
+a float64 model then rounds nowhere in float32.
 
 Attention:
   * ``chunked_attention`` — blockwise (flash-style) causal attention, the
@@ -23,24 +26,30 @@ import torch.nn.functional as F
 NEG_INF = -1e30
 
 
+def wide(x):
+    """``x`` in its accumulation type: float64 stays float64, every other
+    floating type widens to float32."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
 def rms_norm(x, scale, eps: float = 1e-5):
     dtype = x.dtype
-    x = x.float()
+    x = wide(x)
     var = x.square().mean(dim=-1, keepdim=True)
     out = x * torch.rsqrt(var + eps)
-    return (out * scale.float()).to(dtype)
+    return (out * wide(scale)).to(dtype)
 
 
 def layer_norm(x, scale, bias, eps: float = 1e-5):
     dtype = x.dtype
-    x = x.float()
+    x = wide(x)
     mean = x.mean(dim=-1, keepdim=True)
     var = x.var(dim=-1, keepdim=True, unbiased=False)
     out = (x - mean) * torch.rsqrt(var + eps)
-    return (out * scale.float() + bias.float()).to(dtype)
+    return (out * wide(scale) + wide(bias)).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -62,12 +71,13 @@ def _rope_frequencies_on(d_head: int, theta: float, device: torch.device):
 def apply_rope(x, positions, theta: float):
     """x: (..., S, H, D); positions: tensor broadcastable to (..., S).
 
-    Half-split rotation with fp32 angles, as in the reference."""
-    freqs = _rope_frequencies_on(x.shape[-1], theta, x.device)
-    angles = positions.float()[..., None] * freqs       # (..., S, D/2)
+    Half-split rotation with fp32 angles, as in the reference (fp64 for
+    a float64 ``x``)."""
+    x1, x2 = wide(x).chunk(2, dim=-1)
+    freqs = _rope_frequencies_on(x.shape[-1], theta, x.device).to(x1.dtype)
+    angles = positions.to(x1.dtype)[..., None] * freqs  # (..., S, D/2)
     cos = torch.cos(angles)[..., None, :]                # (..., S, 1, D/2)
     sin = torch.sin(angles)[..., None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
@@ -115,14 +125,14 @@ def chunked_attention(q, k, v, *, causal: bool = True, window=None,
     q_pos = q_offset + torch.arange(sq, device=q.device)
     qf = (q * scale).to(q.dtype)
 
-    acc = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
-    m_run = torch.full((b, h, sq), NEG_INF, dtype=torch.float32,
-                       device=q.device)
-    l_run = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
+    ft = wide(q[:0]).dtype
+    acc = torch.zeros((b, h, sq, d), dtype=ft, device=q.device)
+    m_run = torch.full((b, h, sq), NEG_INF, dtype=ft, device=q.device)
+    l_run = torch.zeros((b, h, sq), dtype=ft, device=q.device)
     for start in range(0, skv, chunk):
         k_blk = k[:, start:start + chunk]
         v_blk = v[:, start:start + chunk]
-        s = torch.einsum("bqhd,bkhd->bhqk", qf.float(), k_blk.float())
+        s = torch.einsum("bqhd,bkhd->bhqk", wide(qf), wide(k_blk))
         kv_pos = start + torch.arange(k_blk.shape[1], device=q.device)
         mask = _mask(q_pos, kv_pos, causal, window, local_block)
         s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
@@ -130,8 +140,8 @@ def chunked_attention(q, k, v, *, causal: bool = True, window=None,
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m_run - m_new)
         l_run = l_run * alpha + p.sum(dim=-1)
-        pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v_blk.dtype).float(),
-                          v_blk.float())
+        pv = torch.einsum("bhqk,bkhd->bhqd", wide(p.to(v_blk.dtype)),
+                          wide(v_blk))
         acc = acc * alpha[..., None] + pv
         m_run = m_new
     out = acc / torch.clamp(l_run[..., None], min=1e-30)
@@ -148,13 +158,13 @@ def decode_attention(q, k_cache, v_cache, *, length):
     n_rep = h // k_cache.shape[2]
     k = _expand_kv(k_cache, n_rep)
     v = _expand_kv(v_cache, n_rep)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    scores = torch.einsum("bqhd,bkhd->bhqk", wide(q), wide(k))
     scores = scores * (1.0 / math.sqrt(d))
     length = torch.as_tensor(length, device=q.device).reshape(-1, 1, 1, 1)
     valid = torch.arange(s, device=q.device)[None, None, None, :] < length
     scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    out = torch.einsum("bhqk,bkhd->bqhd", wide(p.to(v.dtype)), wide(v))
     return out.to(q.dtype)
 
 
@@ -171,7 +181,7 @@ def decode_ring_attention(q, k_cache, v_cache, *, t, window=None,
     n_rep = h // k_cache.shape[2]
     k = _expand_kv(k_cache, n_rep)
     v = _expand_kv(v_cache, n_rep)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
+    scores = torch.einsum("bqhd,bkhd->bhqk", wide(q), wide(k))
     scores = scores * (1.0 / math.sqrt(d))
     i = torch.arange(w, device=q.device)
     kv_pos = t - torch.remainder(t - i, w)      # (W,) absolute positions
@@ -184,7 +194,7 @@ def decode_ring_attention(q, k_cache, v_cache, *, t, window=None,
     scores = torch.where(mask[None, None, None, :], scores,
                          torch.full_like(scores, NEG_INF))
     p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    out = torch.einsum("bhqk,bkhd->bqhd", wide(p.to(v.dtype)), wide(v))
     return out.to(q.dtype)
 
 
@@ -206,9 +216,19 @@ def gelu_mlp(x, w1, b1, w3, b3):
 # ---------------------------------------------------------------------------
 def dense_init(generator: torch.Generator, shape: tuple, dtype=torch.bfloat16,
                scale: float | None = None, device=None):
-    """Normal(0, 1/sqrt(fan_in)) in fp32, cast to ``dtype``."""
+    """Normal(0, 1/sqrt(fan_in)) in fp32, cast to ``dtype``.  A stacked
+    leaf (3 or more dims) is drawn one leading slice at a time, so the
+    fp32 draw never holds more than one macro block of it (Mixtral's
+    stacked experts are 4.5 GiB a layer in bf16, twice that in fp32)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    out = torch.randn(shape, generator=generator, dtype=torch.float32,
-                      device=device)
-    return out.mul_(scale).to(dtype)
+    if len(shape) < 3:
+        out = torch.randn(shape, generator=generator, dtype=torch.float32,
+                          device=device)
+        return out.mul_(scale).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    for block in out:
+        block.copy_(torch.randn(block.shape, generator=generator,
+                                dtype=torch.float32, device=device)
+                    .mul_(scale))
+    return out

@@ -12,9 +12,9 @@ the trainer and the tests use:
     cache_specs(batch, max_len) / init_cache(batch, max_len)
 
 Batches are dicts: {"tokens": (B, S) int, ["labels": (B, S) int],
-["prefix_embeds": (B, P, D)]}.  The transformer families, rwkv6 (ssm) and
-hymba (hybrid) work; MoE configs raise NotImplementedError until their
-slice lands (ROADMAP item 3).
+["prefix_embeds": (B, P, D)]}.  Every family of the zoo runs: the
+transformer families (dense, moe, vlm, audio), rwkv6 (ssm) and hymba
+(hybrid).
 """
 from __future__ import annotations
 
@@ -44,7 +44,7 @@ def _family_module(cfg: ModelConfig):
         return rwkv6
     if cfg.family == "hybrid":
         return hymba
-    return transformer  # dense | vlm | audio (moe raises inside)
+    return transformer  # dense | moe | vlm | audio
 
 
 class Model:

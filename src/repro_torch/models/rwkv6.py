@@ -96,7 +96,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def _wkv6_chunk(s, rc, kc, vc, lwc, u):
     """One chunk.  rc/kc/vc: (B, C, H, K); lwc: (B, C, H, K) fp32;
     s: (B, H, K, V) fp32.  Returns (s', y (B, C, H, V) fp32)."""
-    rc, kc, vc = rc.float(), kc.float(), vc.float()
+    rc, kc, vc = L.wide(rc), L.wide(kc), L.wide(vc)
     cum = torch.cumsum(lwc, dim=1)              # inclusive sum of lw
     cum_prev = cum - lwc
     # inter-chunk: y_t += (r_t * exp(cum_prev_t)) @ S
@@ -111,7 +111,7 @@ def _wkv6_chunk(s, rc, kc, vc, lwc, u):
     att = torch.where(mask[None, :, :, None], att, torch.zeros_like(att))
     y = y + torch.einsum("btsh,bshv->bthv", att, vc)
     # diagonal bonus: r_t (u * k_t) v_t
-    diag = torch.einsum("bthk,hk,bthk->bth", rc, u.float(), kc)
+    diag = torch.einsum("bthk,hk,bthk->bth", rc, L.wide(u), kc)
     y = y + diag[..., None] * vc
     # state update: S' = diag(exp(cum_C)) S + sum_s exp(cum_C - cum_s) k_s v_s
     k_dec = kc * torch.exp(cum[:, -1:] - cum)
@@ -127,11 +127,11 @@ def wkv6_chunked(r, k, v, lw, u, s0, chunk: int = WKV_CHUNK):
     as is."""
     t = r.shape[1]
     chunk = min(chunk, t)
-    s, ys = s0.float(), []
+    s, ys = L.wide(s0), []
     for t0 in range(0, t, chunk):
         sl = slice(t0, t0 + chunk)
         s, y = _wkv6_chunk(s, r[:, sl], k[:, sl], v[:, sl],
-                           lw[:, sl].float(), u)
+                           L.wide(lw[:, sl]), u)
         ys.append(y)
     return torch.cat(ys, dim=1).to(r.dtype), s
 
@@ -139,11 +139,11 @@ def wkv6_chunked(r, k, v, lw, u, s0, chunk: int = WKV_CHUNK):
 def wkv6_step(r, k, v, lw, u, s):
     """One decode step.  r/k/v/lw: (B, 1, H, K); s: (B, H, K, V) fp32.
     Returns (y (B, 1, H, V) in r's dtype, s')."""
-    r1, k1, v1 = r[:, 0].float(), k[:, 0].float(), v[:, 0].float()
-    w1 = torch.exp(lw[:, 0].float())
+    r1, k1, v1 = L.wide(r[:, 0]), L.wide(k[:, 0]), L.wide(v[:, 0])
+    w1 = torch.exp(L.wide(lw[:, 0]))
     kv = k1[..., :, None] * v1[..., None, :]                # (B, H, K, V)
     y = torch.einsum("bhk,bhkv->bhv", r1,
-                     s + u.float()[None, :, :, None] * kv)
+                     s + L.wide(u)[None, :, :, None] * kv)
     s = s * w1[..., None] + kv
     return y[:, None].to(r.dtype), s
 
@@ -174,7 +174,7 @@ def time_mix(cfg, w, x, x_prev, s0, opts):
     g = F.silu(xg @ w["wg"])
     wlog = w["w0"] + torch.tanh(xw @ w["wdec_a"]) @ w["wdec_b"]
     # log decay <= 0
-    lw = -torch.exp(torch.clamp(wlog.float(), -20.0, 4.0)).reshape(b, t, h,
+    lw = -torch.exp(torch.clamp(L.wide(wlog), -20.0, 4.0)).reshape(b, t, h,
                                                                    kd)
     if t == 1:
         y, s_fin = wkv6_step(r, k, v, lw, w["u"], s0)
@@ -249,7 +249,8 @@ def _stack(cfg, params, x, cache, opts):
     if cache is None:
         b = x.shape[0]
         zero = {"wkv": torch.zeros((b, cfg.n_heads, cfg.d_head, cfg.d_head),
-                                   dtype=torch.float32, device=x.device),
+                                   dtype=L.wide(x[:0]).dtype,
+                                   device=x.device),
                 "tm": torch.zeros((b, cfg.d_model), dtype=x.dtype,
                                   device=x.device)}
         zero["cm"] = zero["tm"]
@@ -290,7 +291,7 @@ def forward(cfg: ModelConfig, params: dict, tokens, prefix_embeds=None,
         x = _stack(cfg, params, x, None, opts)
         if mode == "hidden":
             return x, 0.0
-        return (x @ params["lm_head"].T).float(), 0.0
+        return L.wide(x @ params["lm_head"].T), 0.0
     if cache is None:
         cache = init_cache(cfg, b, s, opts, device=x.device)
     else:
@@ -298,7 +299,7 @@ def forward(cfg: ModelConfig, params: dict, tokens, prefix_embeds=None,
             cache[name].zero_()
     x = _stack(cfg, params, x, cache, opts)
     cache["t"].fill_(s)
-    return (x[:, -1] @ params["lm_head"].T).float(), cache
+    return L.wide(x[:, -1] @ params["lm_head"].T), cache
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens,
@@ -307,7 +308,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens,
     updated and ``t`` advanced in place."""
     x = params["embed"][tokens[:, :1]].to(opts.act_dtype)
     x = _stack(cfg, params, x, cache, opts)
-    logits = (x[:, 0] @ params["lm_head"].T).float()
+    logits = L.wide(x[:, 0] @ params["lm_head"].T)
     cache["t"].add_(1)
     return logits, cache
 

@@ -1,10 +1,21 @@
-"""Decoder-only transformer, dense family.
+"""Decoder-only transformer covering the dense / moe / vlm / audio families.
 
 Parameters are a flat ``dict[str, Tensor]`` keyed by the reference's
 checkpoint path names (``layers/wq``, ``embed``, ...); layer weights are
 stacked as (n_macro, m, ...) and the layer loop is a Python loop over
 them (PyTorch runs eagerly, so the reference's ``lax.scan`` has no
-counterpart to preserve).
+counterpart to preserve).  An arch with ``global_every = N`` (Llama-4:
+N - 1 chunked-local layers, then one global layer) stacks L/N macro
+blocks of N sub-layers, each with its own attention kind and cache.
+
+Caches: a full-attention layer keeps (B, max_len, KV, DH); a
+sliding-window or chunked-local layer keeps a ring of
+``kvcache.cache_len`` slots, position p at slot p mod W.  Prefill packs a
+prompt's last W positions into the ring (a prompt shorter than the ring
+fills its first slots and zeroes the rest); decode writes slot t mod W and
+attends through the plain ``decode_ring_attention``, as the reference
+does.  With ``global_every`` the cache holds ``k_local`` / ``v_local``
+rings and ``k_global`` / ``v_global`` full caches.
 
 Modes:
   * train   — full-sequence fp32 logits, no cache (:func:`lm_loss` takes
@@ -18,8 +29,8 @@ Modes:
 Train and hidden modes allocate and write no cache, so autograd runs
 through them; with ``RunOptions.remat == "full"`` each layer is
 recomputed in backward (``torch.utils.checkpoint``) when gradients are
-being recorded.  Sliding-window and chunked-local ring caches and MoE
-layers raise NotImplementedError (ROADMAP item 3).
+being recorded.  MoE layers (``models/moe.py``) add their
+load-balancing loss to the aux output, and ``lm_loss`` adds 0.01 of it.
 """
 from __future__ import annotations
 
@@ -30,7 +41,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.registry import ModelConfig
-from repro_torch.models import kvcache
+from repro_torch.models import kvcache, moe
 from repro_torch.models import layers as L
 
 
@@ -45,16 +56,6 @@ class RunOptions:
     logit_chunk: int = 512         # CE loss seq-chunking (memory control)
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP item 3)")
-    if cfg.window or cfg.global_every:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window / chunked-local ring caches are "
-            f"not ported yet (ROADMAP item 3)")
-
-
 def chunked_lm_loss(x, head, labels, opts: RunOptions):
     """Cross-entropy without materialising full-sequence logits.
 
@@ -64,7 +65,7 @@ def chunked_lm_loss(x, head, labels, opts: RunOptions):
     to sum(logsumexp - label logit); the total is divided by B * S."""
     b, s, _ = x.shape
     c = min(opts.logit_chunk, s)
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    total = torch.zeros((), dtype=L.wide(x[:0]).dtype, device=x.device)
     for start in range(0, s, c):
         logits = _logits(x[:, start:start + c], head)       # (B, C, V)
         logz = torch.logsumexp(logits, dim=-1)
@@ -105,7 +106,13 @@ def _layer_param_shapes(cfg: ModelConfig) -> dict[str, tuple]:
         shapes.update({"bq": (h * dh,), "bk": (kv * dh,), "bv": (kv * dh,)})
     if cfg.norm == "layernorm":
         shapes.update({"ln1_bias": (d,), "ln2_bias": (d,)})
-    if cfg.mlp == "swiglu":
+    if cfg.n_experts:
+        e = cfg.n_experts
+        shapes.update({
+            "router": (d, e),
+            "moe_w1": (e, d, f), "moe_w2": (e, d, f), "moe_w3": (e, f, d),
+        })
+    elif cfg.mlp == "swiglu":
         shapes.update({"w1": (d, f), "w2": (d, f), "w3": (f, d)})
     else:
         shapes.update({"w1": (d, f), "b1": (f,), "w3": (f, d), "b3": (d,)})
@@ -114,7 +121,6 @@ def _layer_param_shapes(cfg: ModelConfig) -> dict[str, tuple]:
 
 def param_specs(cfg: ModelConfig, opts: RunOptions = RunOptions()) -> dict:
     """path name -> (shape, dtype)."""
-    _check_supported(cfg)
     n_macro, m, _ = macro_shape(cfg)
     pd = opts.param_dtype
     specs = {f"layers/{k}": ((n_macro, m) + s, pd)
@@ -151,12 +157,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
                 opts: RunOptions = RunOptions()) -> dict:
     """name -> (shape, dtype); ``t`` is the next position to write."""
-    _check_supported(cfg)
     n_macro, m, kinds = macro_shape(cfg)
-    w = kvcache.cache_len(cfg, max_len, kinds[0])
-    shape = (n_macro, m, batch, w, cfg.n_kv_heads, cfg.d_head)
-    return {"t": ((), torch.int32), "k": (shape, opts.act_dtype),
-            "v": (shape, opts.act_dtype)}
+    kvh, dh, ad = cfg.n_kv_heads, cfg.d_head, opts.act_dtype
+    specs = {"t": ((), torch.int32)}
+    if cfg.global_every:
+        wl = kvcache.cache_len(cfg, max_len, "local")
+        for name in ("k", "v"):
+            specs[f"{name}_local"] = ((n_macro, m - 1, batch, wl, kvh, dh),
+                                      ad)
+            specs[f"{name}_global"] = ((n_macro, 1, batch, max_len, kvh, dh),
+                                       ad)
+    else:
+        w = kvcache.cache_len(cfg, max_len, kinds[0])
+        for name in ("k", "v"):
+            specs[name] = ((n_macro, m, batch, w, kvh, dh), ad)
+    return specs
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -189,36 +204,64 @@ def _qkv(cfg, w, x, positions):
 
 
 def _mlp(cfg, w, x):
+    """Returns (out, aux_loss)."""
+    if cfg.n_experts:
+        b, s, d = x.shape
+        # decode (S == 1): the flattened batch is one routing row, so the
+        # capacity tracks the true token count
+        xr = x.reshape(1, b, d) if s == 1 else x
+        out, aux = moe.moe_ffn(
+            xr, w["router"], w["moe_w1"], w["moe_w2"], w["moe_w3"],
+            n_experts=cfg.n_experts, top_k=cfg.top_k,
+            capacity_factor=cfg.capacity_factor)
+        return out.reshape(b, s, d), aux
     if cfg.mlp == "swiglu":
-        return L.swiglu_mlp(x, w["w1"], w["w2"], w["w3"])
-    return L.gelu_mlp(x, w["w1"], w["b1"], w["w3"], w["b3"])
+        return L.swiglu_mlp(x, w["w1"], w["w2"], w["w3"]), 0.0
+    return L.gelu_mlp(x, w["w1"], w["b1"], w["w3"], w["b3"]), 0.0
 
 
-def _attn_full_seq(cfg, w, x, opts, q_offset=0):
+def _masks(cfg, kind):
+    """(window, local_block) of a layer kind."""
+    return (cfg.window if kind == "window" else None,
+            cfg.chunk_attn if kind == "local" else None)
+
+
+def _attn_full_seq(cfg, w, x, kind, opts, q_offset=0):
     """Causal attention over a full sequence.  Returns (out, k, v)."""
     b, s, _ = x.shape
     positions = q_offset + torch.arange(s, device=x.device)
     q, k, v = _qkv(cfg, w, x, positions)
+    window, local = _masks(cfg, kind)
     if opts.use_kernels:
         from repro_torch.kernels.flash_attention import ops as fa_ops
-        o = fa_ops.flash_attention(q, k, v, causal=True, q_offset=q_offset)
+        o = fa_ops.flash_attention(q, k, v, causal=True, window=window,
+                                   local_block=local, q_offset=q_offset)
     else:
-        o = L.chunked_attention(q, k, v, causal=True, chunk=opts.attn_chunk,
+        o = L.chunked_attention(q, k, v, causal=True, window=window,
+                                local_block=local, chunk=opts.attn_chunk,
                                 q_offset=q_offset)
     o = o.reshape(b, s, cfg.n_heads * cfg.d_head)
     return o @ w["wo"], k, v
 
 
-def _attn_decode(cfg, w, x, k_cache, v_cache, t, opts):
-    """One-token attention.  x: (B, 1, D); k_cache/v_cache: (B, S, KV, D)
-    views into the stacked cache, written at slot ``t`` in place."""
+def _attn_decode(cfg, w, x, k_cache, v_cache, t, kind, opts):
+    """One-token attention.  x: (B, 1, D); k_cache/v_cache: (B, W, KV, D)
+    views into the stacked cache, written in place: at slot ``t`` of a
+    full cache, or slot ``t mod W`` of a ring."""
     b = x.shape[0]
     pos = t.reshape(1)
     q, k_new, v_new = _qkv(cfg, w, x, pos)
-    slot = pos.long()
+    if kind in ("full", "global"):
+        slot = pos.long()
+    else:
+        slot = torch.remainder(pos, k_cache.shape[1]).long()
     k_cache.index_copy_(1, slot, k_new.to(k_cache.dtype))
     v_cache.index_copy_(1, slot, v_new.to(v_cache.dtype))
-    if opts.use_kernels:
+    if kind not in ("full", "global"):
+        window, local = _masks(cfg, kind)
+        o = L.decode_ring_attention(q, k_cache, v_cache, t=t, window=window,
+                                    local_block=local)
+    elif opts.use_kernels:
         from repro_torch.kernels.flash_decode import ops as fd_ops
         o = fd_ops.flash_decode_at(q[:, 0], k_cache, v_cache, pos)[:, None]
     else:
@@ -245,7 +288,7 @@ def _head(cfg, params):
 def _logits(x, head):
     # bf16 operands give a bf16 product, widened afterwards; the
     # reference asks XLA for an fp32 result from the same operands
-    return (x @ head.T).float()
+    return L.wide(x @ head.T)
 
 
 # ---------------------------------------------------------------------------
@@ -258,11 +301,12 @@ def _embed(cfg, params, tokens, prefix_embeds, opts):
     return x
 
 
-def _sublayer(cfg, w, x, opts):
-    """One layer over the full sequence.  Returns (x, k, v)."""
-    a, k, v = _attn_full_seq(cfg, w, _norm(cfg, w, "ln1", x), opts)
+def _sublayer(cfg, w, x, kind, opts):
+    """One layer over the full sequence.  Returns (x, aux, k, v)."""
+    a, k, v = _attn_full_seq(cfg, w, _norm(cfg, w, "ln1", x), kind, opts)
     x = x + a
-    return x + _mlp(cfg, w, _norm(cfg, w, "ln2", x)), k, v
+    out, aux = _mlp(cfg, w, _norm(cfg, w, "ln2", x))
+    return x + out, aux, k, v
 
 
 def check_differentiable(params: dict, opts: RunOptions) -> None:
@@ -287,9 +331,10 @@ def forward(cfg: ModelConfig, params: dict, tokens,
             prefix_embeds=None, opts: RunOptions = RunOptions(),
             mode: str = "prefill", cache: Optional[dict] = None,
             max_len: Optional[int] = None):
-    """mode='train': (logits (B, S, V) fp32, aux 0.0);
+    """mode='train': (logits (B, S, V) fp32, aux);
     mode='prefill': (last_logits (B, V) fp32, cache);
-    mode='hidden': (hidden (B, S, D), 0.0).
+    mode='hidden': (hidden (B, S, D), aux).  ``aux`` is the MoE layers'
+    summed load-balancing loss (a 0-d tensor), 0.0 without experts.
 
     In prefill mode ``cache`` (from :func:`init_cache`, with room for
     ``max_len`` positions) is written in place; without one a fresh cache
@@ -298,41 +343,52 @@ def forward(cfg: ModelConfig, params: dict, tokens,
         raise ValueError(f"unknown mode {mode!r}")
     if mode != "prefill" and cache is not None:
         raise ValueError(f"{mode} mode writes no cache")
-    _check_supported(cfg)
     if mode != "prefill":
         check_differentiable(params, opts)
-    _, m, _ = macro_shape(cfg)
+    _, m, kinds = macro_shape(cfg)
     x = _embed(cfg, params, tokens, prefix_embeds, opts)
     b, s, _ = x.shape
     if mode == "prefill" and cache is None:
         cache = init_cache(cfg, b, max_len if max_len is not None else s,
                            opts, device=x.device)
+    aux = 0.0
     for idx, w in enumerate(unstack_layers(params, 2)):
+        i, j = divmod(idx, m)
         if mode == "prefill":
-            x, k, v = _sublayer(cfg, w, x, opts)
-            _fill_cache(cache, *divmod(idx, m), k, v)
+            x, _, k, v = _sublayer(cfg, w, x, kinds[j], opts)
+            _fill_cache(cfg, cache, i, j, kinds[j], k, v)
         else:
-            x = remat_layer(_sublayer, opts, cfg, w, x, opts)[0]
+            x, a, _, _ = remat_layer(_sublayer, opts, cfg, w, x, kinds[j],
+                                     opts)
+            aux = aux + a
     x = _norm(cfg, params, "final_norm", x)
     if mode == "hidden":
-        return x, 0.0
+        return x, aux
     if mode == "train":
-        return _logits(x, _head(cfg, params)), 0.0
+        return _logits(x, _head(cfg, params)), aux
     cache["t"].fill_(s)
     return _logits(x[:, -1], _head(cfg, params)), cache
 
 
-def _fill_cache(cache, i, j, k, v):
-    """Write a layer's fresh keys / values (B, S, KV, DH) at slots [0, S)
-    of a full cache and zero the slots after them, in place."""
+def _layer_cache(cfg, cache, i, j, kind):
+    """(k, v) views of layer (i, j)'s cache, (B, W, KV, DH)."""
+    if not cfg.global_every:
+        return cache["k"][i, j], cache["v"][i, j]
+    if kind == "global":
+        return cache["k_global"][i, 0], cache["v_global"][i, 0]
+    return cache["k_local"][i, j], cache["v_local"][i, j]
+
+
+def _fill_cache(cfg, cache, i, j, kind, k, v):
+    """Write a layer's fresh keys / values (B, S, KV, DH) into its cache,
+    in place (``kvcache.write_prompt``): a ring keeps the last W positions
+    of a longer prompt; a full cache must hold the whole prompt."""
     s = k.shape[1]
-    for name, new in (("k", k), ("v", v)):
-        layer = cache[name][i, j]
-        if s > layer.shape[1]:
+    for layer, new in zip(_layer_cache(cfg, cache, i, j, kind), (k, v)):
+        if s > layer.shape[1] and kind in ("full", "global"):
             raise ValueError(f"prompt of {s} tokens does not fit a cache "
                              f"of {layer.shape[1]} positions")
-        layer[:, :s].copy_(new)
-        layer[:, s:].zero_()
+        kvcache.write_prompt(layer, new)
 
 
 # ---------------------------------------------------------------------------
@@ -340,18 +396,19 @@ def _fill_cache(cache, i, j, k, v):
 # ---------------------------------------------------------------------------
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens,
                 opts: RunOptions = RunOptions()):
-    """tokens: (B, 1) int.  Returns (logits (B, V) fp32, cache), the cache
-    written at slot ``t`` and ``t`` advanced, in place."""
-    _check_supported(cfg)
-    _, m, _ = macro_shape(cfg)
+    """tokens: (B, 1) int.  Returns (logits (B, V) fp32, cache), each
+    layer's cache written at slot ``t`` (full) or ``t mod W`` (ring) and
+    ``t`` advanced, in place."""
+    _, m, kinds = macro_shape(cfg)
     t = cache["t"]
     x = params["embed"][tokens[:, :1]].to(opts.act_dtype)
     for idx, w in enumerate(unstack_layers(params, 2)):
         i, j = divmod(idx, m)
         h = _norm(cfg, w, "ln1", x)
-        x = x + _attn_decode(cfg, w, h, cache["k"][i, j],
-                             cache["v"][i, j], t, opts)
-        x = x + _mlp(cfg, w, _norm(cfg, w, "ln2", x))
+        x = x + _attn_decode(cfg, w, h,
+                             *_layer_cache(cfg, cache, i, j, kinds[j]), t,
+                             kinds[j], opts)
+        x = x + _mlp(cfg, w, _norm(cfg, w, "ln2", x))[0]
     x = _norm(cfg, params, "final_norm", x)
     logits = _logits(x[:, 0], _head(cfg, params))
     t.add_(1)
@@ -364,8 +421,12 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens,
 def lm_loss(cfg: ModelConfig, params: dict, tokens, labels,
             prefix_embeds=None, opts: RunOptions = RunOptions()):
     """Chunked cross-entropy over the token positions (the prefix
-    positions of the vlm family are dropped first)."""
-    x, _ = forward(cfg, params, tokens, prefix_embeds, opts, "hidden")
+    positions of the vlm family are dropped first), plus 0.01 of the MoE
+    load-balancing loss."""
+    x, aux = forward(cfg, params, tokens, prefix_embeds, opts, "hidden")
     if prefix_embeds is not None:           # loss only over token positions
         x = x[:, prefix_embeds.shape[1]:]
-    return chunked_lm_loss(x, _head(cfg, params), labels, opts)
+    loss = chunked_lm_loss(x, _head(cfg, params), labels, opts)
+    if cfg.n_experts:
+        loss = loss + 0.01 * aux
+    return loss

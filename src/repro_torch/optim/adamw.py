@@ -57,9 +57,15 @@ def init(params: dict) -> dict:
     }
 
 
+def _acc_dtype(p: torch.Tensor) -> torch.dtype:
+    """The update's arithmetic type: float64 for float64 parameters,
+    float32 for the rest (the reference's)."""
+    return torch.float64 if p.dtype == torch.float64 else torch.float32
+
+
 def init_error_feedback(params: dict) -> dict:
-    """fp32 zeros shaped like each parameter."""
-    return {k: torch.zeros_like(p, dtype=torch.float32)
+    """Zeros shaped like each parameter, in its update's type."""
+    return {k: torch.zeros_like(p, dtype=_acc_dtype(p))
             for k, p in params.items()}
 
 
@@ -100,8 +106,8 @@ def update(cfg: AdamWConfig, params: dict, grads: dict, state: dict,
             grads[k], err = compress_residual(grads[k], error_feedback[k])
             error_feedback[k].copy_(err)
 
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(grads[k].float()))
-                           for k in names))
+    gnorm = torch.sqrt(sum(torch.sum(torch.square(
+        grads[k].to(_acc_dtype(grads[k])))) for k in names))
     scale_clip = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                              max=1.0)
 
@@ -114,10 +120,10 @@ def update(cfg: AdamWConfig, params: dict, grads: dict, state: dict,
 
     for k in names:
         p, m, v = params[k], state["m"][k], state["v"][k]
-        g = grads[k].float() * scale_clip
+        g = grads[k].to(m.dtype) * scale_clip
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
-        p32 = p.float()
+        p32 = p.to(m.dtype)
         delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) + \
             cfg.weight_decay * p32
         p.copy_(p32 - lr * delta)

@@ -3,7 +3,8 @@
 Step-functional loop around (params, opt_state, step) with:
   * auto-resume from the latest checkpoint (crash / preemption restart),
   * periodic atomic checkpoints (``checkpoint.save`` publishes via rename),
-  * deterministic data replay (batch = f(seed, step), see data/pipeline.py),
+  * deterministic data replay (batch = f(seed, step), drawn on the
+    training device, see data/pipeline.py),
   * optional fault injection (``fail_at_step``), used by the tests to prove
     restart-equivalence: a run that crashes and resumes produces the same
     losses as an uninterrupted one,
@@ -82,7 +83,7 @@ class Trainer:
                  log_fn: Callable[[str], None] = print, device=None):
         self.model: Model = get_model(cfg, opts, device)
         self.device = self.model.device
-        self.data = TokenStream(data_cfg)
+        self.data = TokenStream(data_cfg, device=self.device)
         self.tcfg = tcfg
         self.opt_cfg = opt_cfg
         self.log = log_fn

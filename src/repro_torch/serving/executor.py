@@ -1,7 +1,9 @@
 """Real-compute execution bridge: batched serving on the card.
 
 ``TorchExecutor`` runs the port's model through ``models/model.py`` (for a
-transformer, CUDA flash-attention prefill and flash-decode steps; for
+transformer, CUDA flash-attention prefill and flash-decode steps, a
+sliding-window or chunked-local layer decoding through the plain ring
+attention and an MoE layer through the plain expert GEMMs; for
 RWKV6, the CUDA WKV6 kernel in prefill and the plain one-token recurrence
 in decode; for Hymba, plain PyTorch throughout, as in the reference: the
 window-masked chunked attention and the doubling SSM scan in prefill, ring
@@ -16,8 +18,11 @@ Design:
 * **Batch-lattice bucketing** — a dispatched batch of n jobs pads up to
   the nearest ``batch_lattice`` bucket, so the shapes the device ever sees
   are the profile lattice itself.
+* **Depth cut** — ``n_layers`` serves the config at every published width
+  with only its depth lowered (full-width Mixtral-8x22B does not fit one
+  card at its 56 layers).
 * **Cell cache** — each (arch, stage, batch-bucket, quota) key maps to a
-  cell that holds the bucket's preallocated cache (KV cache; RWKV6
+  cell that holds the bucket's preallocated cache (KV cache or rings; RWKV6
   states; Hymba's ring KV cache, fp32 SSM states and ``t``) and token
   buffers.  A Hymba cell's ring is ``min(window, prompt_len)`` slots
   wide, the width the reference's prefill packs, not ``max_len``.
@@ -85,12 +90,20 @@ class TorchExecutor:
                  quotas: tuple = DEFAULT_QUOTAS,
                  prompt_len: int = 32, gen_len: int = 4,
                  seed: int = 0, use_kernels: bool = True,
-                 reduced: bool = False, dtype=torch.bfloat16, device=None):
+                 reduced: bool = False, n_layers: Optional[int] = None,
+                 dtype=torch.bfloat16, device=None):
         self.device = resolve_device(device)
         self.arch = arch
         self.reduced = reduced
         cfg = get_config(arch)
-        self.cfg = reduce_cfg(cfg) if reduced else cfg
+        cfg = reduce_cfg(cfg) if reduced else cfg
+        if n_layers is not None:
+            if n_layers < 1 or n_layers % (cfg.global_every or 1):
+                raise ValueError(
+                    f"{arch}: a depth of {n_layers} layers is not a whole "
+                    f"number (>= 1) of {cfg.global_every or 1}-layer blocks")
+            cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        self.cfg = cfg
         self.dtype = dtype
         self.opts = RunOptions(use_kernels=use_kernels, attn_chunk=64,
                                param_dtype=dtype, act_dtype=dtype)
@@ -284,6 +297,7 @@ class TorchExecutor:
         return {
             "arch": self.arch,
             "reduced": self.reduced,
+            "n_layers": self.cfg.n_layers,
             "device": str(self.device),
             "dtype": str(self.dtype).replace("torch.", ""),
             "batch_lattice": list(self.batch_lattice),

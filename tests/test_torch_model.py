@@ -22,7 +22,7 @@ from repro.configs.registry import get_config as ref_get_config
 from repro.configs.registry import reduced as ref_reduced
 from repro.models.model import RunOptions as RefRunOptions
 from repro.models.model import get_model as ref_get_model
-from repro_torch.configs.registry import ARCH_IDS, get_config, reduced
+from repro_torch.configs.registry import get_config, reduced
 from repro_torch.models.convert import params_from_reference
 from repro_torch.models.model import RunOptions, get_model
 
@@ -137,21 +137,11 @@ def test_params_from_reference_keeps_bf16():
     assert out["layers/wq"].shape == (1, 1, 2, 2)
 
 
-# rwkv6_1_6b and hymba_1_5b are ported too; tests/test_torch_rwkv6.py and
-# tests/test_torch_hymba.py cover them
-@pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(PORTED)
-                                        - {"internlm2_20b", "internvl2_76b",
-                                           "musicgen_medium", "rwkv6_1_6b",
-                                           "hymba_1_5b"}))
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model(reduced(get_config(arch)), F32, device="cpu").init(0)
-
-
 def test_train_mode_raises():
-    """Train mode writes no cache (handed one it raises), refuses the CUDA
-    kernels under autograd (they have no backward), and MoE configs still
-    raise (ROADMAP item 3); tests/test_torch_train.py trains through it."""
+    """Train mode writes no cache (handed one it raises) and refuses the
+    CUDA kernels under autograd (they have no backward);
+    tests/test_torch_train.py and tests/test_torch_moe.py train through
+    it."""
     from repro_torch.models import transformer
     cfg = reduced(get_config("internlm2_1_8b"))
     toks = torch.zeros((1, 4), dtype=torch.long)
@@ -161,9 +151,6 @@ def test_train_mode_raises():
     params = {k: v.requires_grad_(True) for k, v in m.init(0).items()}
     with pytest.raises(ValueError, match="no backward"):
         transformer.forward(cfg, params, toks, opts=F32, mode="train")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.forward(reduced(get_config("mixtral_8x22b")), {}, toks,
-                            mode="train")
 
 
 def test_model_defaults_to_cuda():

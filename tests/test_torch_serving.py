@@ -16,6 +16,8 @@ import json
 import pytest
 import torch
 
+from repro_torch.configs.registry import ARCH_IDS
+
 
 ARCHS = ["internlm2_1_8b", "rwkv6_1_6b", "hymba_1_5b"]
 
@@ -162,7 +164,8 @@ def test_device_peaks_by_name():
 
 
 def test_roofline_terms_match_reference_arithmetic():
-    """Same model arithmetic as the reference; only the peaks differ."""
+    """Same model arithmetic as the reference at its 16-wide model axis;
+    only the peaks differ."""
     from repro.configs.registry import ShapeSpec as RefShape
     from repro.configs.registry import get_config as ref_cfg
     from repro.launch import roofline as ref_rl
@@ -175,15 +178,105 @@ def test_roofline_terms_match_reference_arithmetic():
         ref_shape = RefShape("x", seq, b, kind)
         assert rl.model_flops(cfg, shape) == ref_rl.model_flops(
             ref_cfg("internlm2_1_8b"), ref_shape)
-        assert rl.analytic_memory_bytes(cfg, shape, 1) == \
+        assert rl.analytic_memory_bytes(cfg, shape, 1, model_axis=16) == \
             ref_rl.analytic_memory_bytes(ref_cfg("internlm2_1_8b"),
                                          ref_shape, 1)
         t = rl.roofline(cfg, shape, rl.model_flops(cfg, shape), 0.0, 0.0, 1,
-                        peaks)
+                        peaks, model_axis=1)
         assert t.compute_s == pytest.approx(rl.model_flops(cfg, shape)
                                             / 989e12)
     # decode at batch 8 reads every weight once: bound by bytes
     assert t.dominant == "memory"
+
+
+def _state_terms(cfg, shape, n_chips, model_axis=16):
+    """The prefill state the port charges and the KV write the reference
+    charges the ssm family in its place (bytes)."""
+    b_loc = max(shape.global_batch / min(n_chips, model_axis), 1)
+    l = cfg.n_layers
+    if cfg.family == "ssm":
+        state = b_loc * cfg.n_heads * cfg.d_head * cfg.d_head * 4 * l
+        ref_cache = b_loc * shape.seq_len * 2 * cfg.n_kv_heads * \
+            cfg.d_head * 2 * l / n_chips * model_axis
+        return state, ref_cache
+    if cfg.family == "hybrid":
+        return b_loc * cfg.d_model * cfg.ssm_state * 4 * l, 0.0
+    return 0.0, 0.0
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_roofline_at_a_16_wide_model_axis_is_the_reference(arch):
+    """Every kind of every arch at 1, 16 and 256 chips: the reference's
+    bytes exactly, but for the prefill state the port adds (ssm: the WKV
+    state in place of the reference's KV write; hybrid: the SSM state)."""
+    from repro.configs.registry import SHAPES as REF_SHAPES
+    from repro.configs.registry import get_config as ref_cfg
+    from repro.launch import roofline as ref_rl
+    from repro_torch.configs.registry import SHAPES, get_config
+    from repro_torch.launch import roofline as rl
+    cfg = get_config(arch)
+    kinds = set()
+    for name, shape in SHAPES.items():
+        kinds.add(shape.kind)
+        for n_chips in (1, 16, 256):
+            got = rl.analytic_memory_bytes(cfg, shape, n_chips,
+                                           model_axis=16)
+            want = ref_rl.analytic_memory_bytes(ref_cfg(arch),
+                                                REF_SHAPES[name], n_chips)
+            if shape.kind == "prefill":
+                state, ref_cache = _state_terms(cfg, shape, n_chips)
+                want = want - ref_cache + state
+            assert got == pytest.approx(want, rel=1e-12), (name, n_chips)
+            if shape.kind != "prefill" or cfg.family not in ("ssm",
+                                                             "hybrid"):
+                assert got == want, (name, n_chips)
+    assert kinds == {"train", "prefill", "decode"}
+
+
+@pytest.mark.parametrize("arch", ["internlm2_1_8b", "mixtral_8x22b",
+                                  "llama4_maverick_400b_a17b"])
+def test_roofline_on_one_card_charges_one_kv_write_per_prefill_token(arch):
+    """One card (``model_axis=1``): a prefill writes each token's keys and
+    values once and runs every MLP and projection activation whole; the
+    16-wide axis charges the KV write 16 times."""
+    from repro_torch.configs.registry import ShapeSpec, get_config
+    from repro_torch.launch import roofline as rl
+    cfg = get_config(arch)
+    b, s = 8, 128
+    d, f, l = cfg.d_model, cfg.d_ff, cfg.n_layers
+    f_act = f * cfg.top_k if cfg.n_experts else f
+    kv_write = b * s * 2 * cfg.n_kv_heads * cfg.d_head * 2 * l
+    acts = b * s * (8 * d + 3 * f_act + 4 * cfg.n_kv_heads * cfg.d_head) \
+        * 2 * l
+    shape = ShapeSpec("x", s, b, "prefill")
+    one = rl.analytic_memory_bytes(cfg, shape, 1, model_axis=1)
+    assert one == pytest.approx(cfg.n_params * 2.0 + acts + kv_write)
+    wide = rl.analytic_memory_bytes(cfg, shape, 1, model_axis=16)
+    acts16 = b * s * (8 * d + 3 * f_act / 16
+                      + 4 * cfg.n_kv_heads * cfg.d_head) * 2 * l
+    assert wide == pytest.approx(cfg.n_params * 2.0 + acts16
+                                 + 16 * kv_write)
+
+
+def test_roofline_charges_hybrid_prefill_its_ssm_state():
+    """Hymba's prefill writes its KV cache and, per layer, the SSM
+    branch's fp32 state (B, d_inner = d_model, N); the state does not grow
+    with the prompt."""
+    from repro_torch.configs.registry import ShapeSpec, get_config
+    from repro_torch.launch import roofline as rl
+    cfg = get_config("hymba_1_5b")
+    b, s = 8, 128
+    d, f, l = cfg.d_model, cfg.d_ff, cfg.n_layers
+    acts = b * s * (8 * d + 3 * f + 4 * cfg.n_kv_heads * cfg.d_head) * 2 * l
+    kv_write = b * s * 2 * cfg.n_kv_heads * cfg.d_head * 2 * l
+    state = b * d * cfg.ssm_state * 4 * l
+    got = rl.analytic_memory_bytes(cfg, ShapeSpec("x", s, b, "prefill"), 1,
+                                   model_axis=1)
+    assert got == pytest.approx(cfg.n_params * 2.0 + acts + kv_write + state)
+    longer = rl.analytic_memory_bytes(cfg, ShapeSpec("x", 2 * s, b,
+                                                     "prefill"), 1,
+                                      model_axis=1)
+    assert longer - got == pytest.approx(acts + kv_write)
 
 
 def test_roofline_charges_rwkv6_prefill_its_state_not_a_kv_cache():
@@ -194,14 +287,16 @@ def test_roofline_charges_rwkv6_prefill_its_state_not_a_kv_cache():
     cfg = get_config("rwkv6_1_6b")
     b, s = 8, 128
     d, f, l = cfg.d_model, cfg.d_ff, cfg.n_layers
-    acts = b * s * (8 * d + 3 * f / 16 + 4 * cfg.n_kv_heads * cfg.d_head) \
+    acts = b * s * (8 * d + 3 * f + 4 * cfg.n_kv_heads * cfg.d_head) \
         * 2 * l
     state = b * cfg.n_heads * cfg.d_head * cfg.d_head * 4 * l
-    got = rl.analytic_memory_bytes(cfg, ShapeSpec("x", s, b, "prefill"), 1)
+    got = rl.analytic_memory_bytes(cfg, ShapeSpec("x", s, b, "prefill"), 1,
+                                   model_axis=1)
     assert got == pytest.approx(cfg.n_params * 2.0 + acts + state)
     # the state does not grow with the prompt
     longer = rl.analytic_memory_bytes(cfg, ShapeSpec("x", 2 * s, b,
-                                                     "prefill"), 1)
+                                                     "prefill"), 1,
+                                      model_axis=1)
     assert longer - got == pytest.approx(acts)
 
 

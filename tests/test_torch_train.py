@@ -273,7 +273,72 @@ def test_compressed_training_still_learns(tmp_path):
     assert mean_loss(after["params"]) < mean_loss(before["params"]) - 0.05
 
 
+def test_compressed_training_still_learns_first_vs_last_batch(tmp_path):
+    """The reference's own check (tests/test_checkpoint.py), restored now
+    that the port trains on the reference's token stream: the last step's
+    loss is below the first's."""
+    cfg = reduced(get_config("internlm2_1_8b"))
+    dc = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2)
+    t = Trainer(cfg, dc, TrainerConfig(steps=15, ckpt_every=100,
+                                       ckpt_dir=str(tmp_path / "c"),
+                                       log_every=100), F32,
+                opt_cfg=adamw.AdamWConfig(lr=3e-3, warmup_steps=2,
+                                          total_steps=15,
+                                          compress_grads=True),
+                device="cpu", **QUIET)
+    r = t.run()
+    assert r["losses"][-1] < r["losses"][0]
+
+
 # ---- data ------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed,step,vocab", [(0, 0, 256), (0, 7, 256),
+                                             (5, 3, 1000), (123, 1000, 300),
+                                             (1, 2, 92544)])
+def test_token_stream_is_the_references(seed, step, vocab):
+    """TokenStream.batch draws the reference's jax.random tokens, whole
+    and by host slice."""
+    kw = dict(vocab=vocab, seq_len=32 if vocab < 10000 else 8,
+              global_batch=4, seed=seed)
+    ref = RefTokenStream(RefDataConfig(**kw))
+    port = TokenStream(DataConfig(**kw))
+    want, got = ref.batch(step), port.batch(step)
+    for k in ("tokens", "labels"):
+        assert got[k].dtype == torch.int64
+        assert np.array_equal(got[k].numpy(), np.asarray(want[k]))
+    sl = port.host_slice(1, 2)
+    assert np.array_equal(port.batch(step, sl)["tokens"].numpy(),
+                          np.asarray(ref.batch(step, sl)["tokens"]))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 123])
+def test_threefry_samplers_match_jax_random(seed):
+    """PRNGKey, fold_in, split, uniform, bernoulli and randint bit for bit;
+    randint at spans below and above 2**16 (where jax's multiplier wraps)."""
+    from repro_torch.data import pipeline as P
+    key, pkey = jax.random.PRNGKey(seed), P.prng_key(seed)
+    assert np.array_equal(np.asarray(key).astype(np.int64), pkey.numpy())
+    key, pkey = jax.random.fold_in(key, 17), P.fold_in(pkey, 17)
+    assert np.array_equal(np.asarray(key).astype(np.int64), pkey.numpy())
+    ks, pks = jax.random.split(key, 3), P.split(pkey, 3)
+    assert np.array_equal(np.asarray(ks).astype(np.int64), pks.numpy())
+    assert np.array_equal(np.asarray(jax.random.uniform(ks[0], (5, 7))),
+                          P.uniform(pks[0], (5, 7)).numpy())
+    assert np.array_equal(np.asarray(jax.random.bernoulli(ks[1], 0.5,
+                                                          (64, 1))),
+                          P.bernoulli(pks[1], 0.5, (64, 1)).numpy())
+    for vocab in (256, 65535, 70000, 92544, 1 << 20):
+        assert np.array_equal(
+            np.asarray(jax.random.randint(ks[2], (4, 8), 0, vocab,
+                                          jnp.int32)),
+            P.randint(pks[2], (4, 8), 0, vocab).numpy()), vocab
+    logits = jnp.asarray(np.random.default_rng(seed).normal(size=50)
+                         .astype(np.float32))
+    assert np.array_equal(
+        np.asarray(jax.random.categorical(ks[0], logits, shape=(3, 20))),
+        P.categorical(pks[0], torch.from_numpy(np.array(logits)),
+                      (3, 20)).numpy())
+
 
 def test_data_pipeline_deterministic():
     dc = DataConfig(vocab=128, seq_len=16, global_batch=4, seed=5)
