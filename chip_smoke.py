@@ -59,7 +59,17 @@ Phases, in order; any failure raises and the exit code is nonzero:
    InternLM2-1.8B in bf16 at B = 8, S = 128, 8 steps with a checkpoint at
    step 4 and one more step with int8 gradient compression, timed; every
    kernel counter at 0;
-7. report: one JSON line of kernel numbers, the card's name and power
+7. shard (the multi-device layer, ``launch/steps.py``, on a one-rank
+   NCCL process group and a (1, 1) mesh): full-width InternLM2-1.8B in
+   bf16 from seed 0 through the sharded prefill step with the kernels at
+   B = 8, S = 128 (flash-attention once a layer, no other kernel), its
+   logits and cache against the unsharded ``Model.prefill``, and again
+   with explicit TP; 16 serve steps (the sequence-sharded decode, no
+   flash-decode launch, as in the reference), each against the unsharded
+   plain decode from the same state; 2 train steps against phase 6's
+   Trainer losses; then the
+   process group destroyed;
+8. report: one JSON line of kernel numbers, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -123,6 +133,12 @@ TRAIN_LOSS_RTOL, TRAIN_UPDATE_RTOL = 1e-5, 1e-3
 RESTART_ATOL = 1e-6   # final loss, resumed vs uninterrupted (bf16)
 FULL_BATCH, FULL_SEQ, FULL_STEPS, FULL_CKPT_AT, FULL_WARMUP = 8, 128, 8, 4, 2
 SLEEP_CYCLES = 4_000_000   # ~2 ms of device time at H100 clocks
+# the shard phase: full-width InternLM2-1.8B on a one-rank NCCL mesh,
+# prefill at B = 8 and S = PROMPT_LEN, SHARD_DECODE serve steps, and
+# SHARD_TRAIN_STEPS train steps at the phase-6 shape; logits and losses
+# (relative) within BF16_TOL of the unsharded path
+SHARD_BATCH, SHARD_DECODE, SHARD_TRAIN_STEPS = 8, 16, 2
+BF16_TOL = TOL["bfloat16"]
 
 
 def log(msg: str) -> None:
@@ -1148,8 +1164,6 @@ def emulate_phase(name: str, counters: dict) -> dict:
     """The zoo's profiles for this card, then ``emulate`` over those
     tables with ESG, the four baselines and one scenario run; no kernel
     may launch."""
-    from unittest import mock
-
     from repro_torch.cluster.gpu_profiles import zoo_tables
     from repro_torch.launch import serve
     from repro_torch.launch.roofline import device_peaks
@@ -1164,20 +1178,20 @@ def emulate_phase(name: str, counters: dict) -> dict:
         fn.launches = 0
     t0 = time.perf_counter()
     out = {"t1_ms": {a: t.fn.t1_ms for a, t in tables.items()}}
-    with mock.patch.object(serve, "zoo_tables", lambda: tables):
-        for sched in ("esg", "infless", "fastgshare", "orion", "aquatope"):
-            s = serve.emulate("moderate-normal", EMULATE_N, seed=SEED,
-                              scheduler=sched, log=log)
-            if not (s["completed"] + s["shed"] == EMULATE_N
-                    and 0.0 <= s["slo_hit_rate"] <= 1.0):
-                raise AssertionError(
-                    f"emulate {sched}: {s['completed']} done + {s['shed']} "
-                    f"shed of {EMULATE_N}, hit rate {s['slo_hit_rate']}")
-            out[sched] = {k: s[k] for k in ("completed", "shed",
-                                            "slo_hit_rate", "total_cost",
-                                            "mean_latency_ms")}
+    for sched in ("esg", "infless", "fastgshare", "orion", "aquatope"):
         s = serve.emulate("moderate-normal", EMULATE_N, seed=SEED,
-                          scenario="mmpp", autoscaler="ewma", log=log)
+                          scheduler=sched, log=log, tables=tables)
+        if not (s["completed"] + s["shed"] == EMULATE_N
+                and 0.0 <= s["slo_hit_rate"] <= 1.0):
+            raise AssertionError(
+                f"emulate {sched}: {s['completed']} done + {s['shed']} "
+                f"shed of {EMULATE_N}, hit rate {s['slo_hit_rate']}")
+        out[sched] = {k: s[k] for k in ("completed", "shed",
+                                        "slo_hit_rate", "total_cost",
+                                        "mean_latency_ms")}
+    s = serve.emulate("moderate-normal", EMULATE_N, seed=SEED,
+                      scenario="mmpp", autoscaler="ewma", log=log,
+                      tables=tables)
     if not (s["injected"] == s["completed"] + s["shed"] == EMULATE_N
             and 0.0 <= s["slo_attainment"] <= 1.0):
         raise AssertionError(f"emulate mmpp/ewma: {s['injected']} injected, "
@@ -1451,6 +1465,227 @@ def train_phase(torch, peaks, smi: str, counters: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 7: shard (the multi-device layer on a one-rank NCCL mesh)
+# ---------------------------------------------------------------------------
+def _reset(counters: dict) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+
+
+def _launches(counters: dict) -> dict:
+    return {n: fn.launches for n, fn in counters.items()}
+
+
+def _want_launches(counters: dict, got: dict, what: str, **want) -> None:
+    full = {n: want.get(n, 0) for n in counters}
+    if got != full:
+        raise AssertionError(f"{what}: launches {got}, want {full}")
+
+
+def _gate(torch, what: str, out, ref, tol: float) -> float:
+    """max |out - ref|, finite and within atol = rtol = ``tol``."""
+    diff = (out.float() - ref.float()).abs()
+    err = float(diff.max())
+    if not (math.isfinite(err) and bool(
+            (diff <= tol + tol * ref.float().abs()).all())):
+        raise AssertionError(f"{what}: max abs err {err} beyond atol = rtol "
+                             f"= {tol}")
+    return err
+
+
+def shard_phase(torch, counters: dict, smi: str, trainer_losses) -> dict:
+    """Full-width InternLM2-1.8B (bf16, random weights from SEED) through
+    the sharded step builders on a one-rank NCCL mesh: the prefill step
+    with the kernels (flash-attention once per layer, no other kernel)
+    against the unsharded ``Model.prefill``; SHARD_DECODE serve steps
+    (the sequence-sharded decode, no kernel, as in the reference), each
+    against the unsharded plain decode from the same state; the prefill
+    again with explicit TP; and
+    SHARD_TRAIN_STEPS train steps against the Trainer's first losses of
+    phase 6.  Every counter is set to 0 before each run and read after."""
+    import gc
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs.registry import ShapeSpec, get_config
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.model import RunOptions, get_model
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.trainer import deterministic
+
+    t_start = time.perf_counter()
+    cfg = get_config(ARCH)
+    store = OUT / "shard_store"
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    mesh = make_test_mesh((1, 1), device_type="cuda")
+    axes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    log(f"[shard] one-rank NCCL mesh {axes}; full-width {ARCH} bf16, seed "
+        f"{SEED}")
+
+    def put(tree, placements):
+        if isinstance(tree, dict):
+            return {k: put(v, placements[k]) for k, v in tree.items()}
+        return distribute_tensor(tree, mesh, placements)
+
+    def whole(tree):
+        return {k: v.full_tensor() for k, v in tree.items()}
+
+    opts = RunOptions(remat="none", use_kernels=True)
+    model = get_model(cfg, opts, device="cuda")
+    params = model.init(SEED)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    b, s = SHARD_BATCH, PROMPT_LEN
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=g,
+                           device="cuda")
+
+    # prefill: the kernels' path, against the unsharded Model.prefill
+    pre_shape = ShapeSpec("shard_prefill", s, b, "prefill")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_logits, ref_cache = model.prefill(params, {"tokens": tokens},
+                                          max_len=s)
+    torch.cuda.synchronize()
+    out = {"unsharded_prefill_ms": (time.perf_counter() - t0) * 1e3}
+    for explicit in (False, True):
+        name = "prefill_explicit_tp" if explicit else "prefill"
+        fn, in_pl, out_pl, _, _ = steps.build_prefill_step(
+            cfg, pre_shape, mesh,
+            dataclasses.replace(opts, explicit_tp_ffn=explicit))
+        args = (put(params, in_pl[0]), put({"tokens": tokens}, in_pl[1]))
+        torch.cuda.synchronize()
+        _reset(counters)
+        t0 = time.perf_counter()
+        logits, cache = fn(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        got = _launches(counters)
+        _want_launches(counters, got, f"shard {name}",
+                       flash_attention=cfg.n_layers)
+        errs = {"logits": _gate(torch, f"shard {name} logits",
+                                logits.full_tensor(), ref_logits, BF16_TOL)}
+        for k, v in whole(cache).items():
+            errs[k] = _gate(torch, f"shard {name} cache {k}", v,
+                            ref_cache[k], BF16_TOL)
+        log(f"[shard] {name} B={b} S={s}: {ms:.3f} ms (host clock; the "
+            f"unsharded prefill {out['unsharded_prefill_ms']:.3f} ms), "
+            f"launches {got}, max abs err vs the unsharded prefill {errs}")
+        out[name] = {"launches": got, "ms": ms, "max_abs_err": errs}
+        del args, logits, cache
+    del ref_logits, ref_cache
+
+    # serve: the sequence-sharded decode against the plain unsharded one
+    depth = s + SHARD_DECODE
+    dec_shape = ShapeSpec("shard_decode", depth, b, "decode")
+    fn, in_pl, _, _, _ = steps.build_serve_step(cfg, dec_shape, mesh, opts)
+    plain = get_model(cfg, dataclasses.replace(opts, use_kernels=False),
+                      device="cuda")
+    _, cache0 = model.prefill(params, {"tokens": tokens}, max_len=depth)
+    sh_params = put(params, in_pl[0])
+    sh_cache = put(cache0, in_pl[1])
+    del cache0
+    nxt = tokens[:, -1:]
+    errs, step_ms, plain_ms, scale = [], [], [], 0.0
+    _reset(counters)
+    for _ in range(SHARD_DECODE):
+        tok = distribute_tensor(nxt.int(), mesh, in_pl[2])
+        # the plain decode starts from the state this step starts from
+        state = {k: v.full_tensor().clone() for k, v in sh_cache.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, sh_cache = fn(sh_params, sh_cache, tok)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        logits = logits.full_tensor()
+        t0 = time.perf_counter()
+        ref, _ = plain.decode(params, state, nxt)
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+        errs.append(_gate(torch, "shard serve logits", logits, ref,
+                          BF16_TOL))
+        scale = max(scale, float(ref.float().abs().max()))
+        nxt = logits.argmax(-1, keepdim=True)
+    got = _launches(counters)
+    _want_launches(counters, got, "shard serve")
+    if int(sh_cache["t"].full_tensor()) != depth:
+        raise AssertionError("shard serve: the cache's position did not "
+                             "advance to the end")
+    log(f"[shard] serve B={b}: {SHARD_DECODE} decode steps from a "
+        f"{s}-token prompt, step ms {[round(t, 3) for t in step_ms]} (host "
+        f"clock; median {statistics.median(step_ms):.3f}, the unsharded "
+        f"plain decode's {statistics.median(plain_ms):.3f}), launches {got} "
+        f"(flash_decode_at 0: the mesh decode is the "
+        f"sequence-sharded plain path, as in the reference), max abs err "
+        f"vs the unsharded plain decode from the same state "
+        f"{[round(e, 6) for e in errs]} (max |logit| {scale})")
+    out["serve"] = {"launches": got, "step_ms": step_ms,
+                    "unsharded_plain_ms": plain_ms,
+                    "max_abs_err": max(errs), "max_abs_logit": scale}
+    del sh_params, sh_cache, state, params, model, plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # train: SHARD_TRAIN_STEPS steps against the Trainer's first losses
+    tr_shape = ShapeSpec("shard_train", FULL_SEQ, FULL_BATCH, "train")
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=20,
+                                total_steps=FULL_STEPS)
+    tr_opts = RunOptions(remat="none")
+    fn, in_pl, _, _, donate = steps.build_train_step(cfg, tr_shape, mesh,
+                                                     tr_opts, opt_cfg)
+    params = get_model(cfg, tr_opts, device="cuda").init(SEED)
+    sh_params = put(params, in_pl[0])
+    sh_opt = put(adamw.init(params), in_pl[1])
+    del params
+    data = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=FULL_SEQ,
+                                  global_batch=FULL_BATCH), device="cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, step_ms = [], [], []
+    _reset(counters)
+    with deterministic(torch.device("cuda")):
+        for step in range(SHARD_TRAIN_STEPS):
+            batch = put(data.batch(step), in_pl[2])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sh_params, sh_opt, m = fn(sh_params, sh_opt, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"].full_tensor()))
+            norms.append(float(m["grad_norm"].full_tensor()))
+    peak = torch.cuda.max_memory_allocated()
+    got = _launches(counters)
+    _want_launches(counters, got, "shard train")
+    rel = [abs(a - b_) / abs(b_) for a, b_ in zip(losses, trainer_losses)]
+    log(f"[shard] train B={FULL_BATCH} S={FULL_SEQ}: losses {losses} vs the "
+        f"Trainer's {list(trainer_losses[:SHARD_TRAIN_STEPS])} (rel "
+        f"{rel}), grad norms {norms}, step ms "
+        f"{[round(t, 3) for t in step_ms]} (host clock, device synchronised"
+        f"), peak allocated {peak / 2**30:.3f} GiB; card: {smi}")
+    if not (len(rel) == SHARD_TRAIN_STEPS
+            and all(r <= BF16_TOL for r in rel)):
+        raise AssertionError(f"shard train: losses {losses} vs the "
+                             f"Trainer's {trainer_losses}")
+    out["train"] = {"launches": got, "losses": losses, "grad_norms": norms,
+                    "loss_rel_err": rel, "step_ms": step_ms,
+                    "peak_bytes": peak}
+    del sh_params, sh_opt, batch, m
+    dist.destroy_process_group()
+    store.unlink(missing_ok=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"[shard] phase {out['seconds']:.1f}s; process group destroyed")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--wkv6-previous", metavar="CU",
@@ -1560,7 +1795,11 @@ def main() -> int:
     emulated = emulate_phase(name, counters)
     trained = train_phase(torch, peaks, smi, counters)
 
-    # 7. report
+    # 7. shard: the multi-device layer on a one-rank NCCL mesh
+    sharded = shard_phase(torch, counters, smi,
+                          trained["full_width"]["losses"])
+
+    # 8. report
     big = timing[max(BATCHES)]
     kernels = []
     for kname, chk, src, rep in (
@@ -1592,11 +1831,23 @@ def main() -> int:
     kernels[0]["mixtral_long"] = {
         **{k: mixtral["long"][k] for k in keys},
         "launches": long["launches"], "n_layers": MIXTRAL_LAYERS}
+    # the shard phase's launches: the prefill step (and with explicit TP)
+    # runs flash-attention once a layer; the mesh serve step runs the
+    # sequence-sharded plain decode, no flash-decode launch
+    kernels[0]["shard"] = {
+        "launches": sharded["prefill"]["launches"]["flash_attention"],
+        "launches_explicit_tp":
+            sharded["prefill_explicit_tp"]["launches"]["flash_attention"],
+        "n_layers": cfg.n_layers}
+    kernels[1]["shard"] = {
+        "launches": sharded["serve"]["launches"]["flash_decode_at"],
+        "decode_steps": SHARD_DECODE}
     with open(OUT / "chip_smoke.json", "w") as f:
         json.dump({"kernels": kernels, "timing": timing,
                    "mixtral_attention": mixtral, "mixtral_long": long,
                    "mixtral_serve_peak_bytes": [m_peak, m_reserved],
                    "emulate": emulated, "train": trained,
+                   "shard": sharded,
                    "device": name, "nvidia_smi": smi}, f, indent=2)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

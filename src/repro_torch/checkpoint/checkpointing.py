@@ -96,19 +96,25 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir, tree_like, step: Optional[int] = None, device=None):
+def restore(ckpt_dir, tree_like, shardings=None, step: Optional[int] = None,
+            device=None, mesh=None):
     """Restore into the structure of ``tree_like`` (its leaves give the
     names; their values are not read).  Each leaf comes back in the
-    manifest's dtype, on ``device`` (default: the CPU).  Returns
-    (tree, step)."""
+    manifest's dtype, on ``device`` (default: the CPU).  With
+    ``shardings`` (a matching tree of partition specs) and ``mesh``, each
+    leaf comes back as a DTensor on ``mesh`` holding this rank's block.
+    Returns (tree, step)."""
     ckpt_dir = pathlib.Path(ckpt_dir)
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    if shardings is not None and mesh is None:
+        raise ValueError("restoring onto shardings needs their mesh")
     d = ckpt_dir / f"step_{step:08d}"
     with open(d / "manifest.json") as f:
         manifest = json.load(f)
+    specs = dict(_flatten(shardings)) if shardings is not None else {}
     leaves = {}
     for name, _ in _flatten(tree_like):
         info = manifest["leaves"][name]
@@ -116,7 +122,11 @@ def restore(ckpt_dir, tree_like, step: Optional[int] = None, device=None):
         if list(t.shape) != info["shape"]:
             raise ValueError(f"{d / info['file']}: shape {list(t.shape)}, "
                              f"manifest {info['shape']}")
-        leaves[name] = t.to(device) if device is not None else t
+        t = t.to(device) if device is not None else t
+        if name in specs:
+            from repro_torch.launch.shardings import distribute
+            t = distribute(t, specs[name], mesh)
+        leaves[name] = t
     return _unflatten_like(tree_like, leaves), manifest["step"]
 
 

@@ -85,8 +85,9 @@ def emulate(setting: str = "moderate-normal", n: int = 200, seed: int = 0,
             trace_out: str | None = None, metrics_out: str | None = None,
             audit_out: str | None = None, calibrate: bool = False,
             health_out: str | None = None,
-            log=print) -> dict:
-    """Emulated serving over the model zoo, on the host only.
+            log=print, tables: dict | None = None) -> dict:
+    """Emulated serving over the model zoo, on the host only, over
+    ``tables`` (default: ``zoo_tables()``, the H100 data sheet's peaks).
 
     Legacy mode (``scenario=None``) drives the paper's uniform-interval
     ``setting`` through ``cluster.workload.generate``.  Scenario mode runs
@@ -106,7 +107,7 @@ def emulate(setting: str = "moderate-normal", n: int = 200, seed: int = 0,
     """
     from repro_torch.serving import Gateway, get_autoscaler, get_scenario
 
-    tables = zoo_tables()
+    tables = tables if tables is not None else zoo_tables()
     profiles = {a: t.fn for a, t in tables.items()}
     sched = _make_scheduler(scheduler, tables)
     scaler = get_autoscaler(autoscaler) if autoscaler else None

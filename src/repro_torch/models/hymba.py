@@ -160,7 +160,7 @@ def ssm_step(xm, dt, b_in, c_in, a_log, d_skip, h):
 # Layer
 # ---------------------------------------------------------------------------
 def _mamba_branch(w, x, h0, decode: bool):
-    xm, z = (x @ w["w_in"]).chunk(2, dim=-1)
+    xm, z = (x @ w["w_in"]).chunk(2, dim=-1)   # no constrain
     dt = F.softplus(xm @ w["w_dt"] + w["b_dt"])
     b_in = xm @ w["w_B"]
     c_in = xm @ w["w_C"]
@@ -183,6 +183,7 @@ def _attn_branch(cfg, w, x, k_ring, v_ring, t, opts):
     k = L.apply_rope((x @ w["wk"]).reshape(b, s, kv, dh), positions,
                      cfg.rope_theta)
     v = (x @ w["wv"]).reshape(b, s, kv, dh)
+    # q, k, v: no constrain hint: a rank holds its whole batch block
     if t is None:
         o = L.chunked_attention(q, k, v, causal=True, window=cfg.window,
                                 chunk=opts.attn_chunk)
@@ -206,7 +207,7 @@ def layer(cfg, w, x, k_ring, v_ring, ssm, t, opts):
     ssm_out, h_fin = _mamba_branch(w, hpre, ssm, decode=t is not None)
     fused = 0.5 * (L.rms_norm(attn_out, w["fuse_attn_scale"]) +
                    L.rms_norm(ssm_out, w["fuse_ssm_scale"]))
-    x = x + fused
+    x = x + fused           # no constrain: whole batch block
     h2 = L.rms_norm(x, w["ln2_scale"])
     x = x + L.swiglu_mlp(h2, w["w1"], w["w2"], w["w3"])
     return x, k, v, h_fin
@@ -278,6 +279,7 @@ def forward(cfg: ModelConfig, params: dict, tokens, prefix_embeds=None,
     if mode != "prefill" and cache is not None:
         raise ValueError(f"{mode} mode writes no cache")
     b, s = tokens.shape
+    # no constrain hint: a rank holds its whole batch block
     x = params["embed"][tokens].to(opts.act_dtype)
     if mode != "prefill":
         x = _stack(cfg, params, x, None, None, opts)

@@ -206,6 +206,50 @@ def swiglu_mlp(x, w1, w2, w3):
     return (x @ w1 * F.silu(x @ w2)) @ w3
 
 
+def _dp_axes(opts) -> tuple:
+    return tuple(opts.dp_spec or ())
+
+
+def explicit_tp_swiglu(x, w1, w2, w3, opts):
+    """SwiGLU with explicit tensor-parallel collectives, per rank.
+
+    x: this rank's batch block (B/|dp|, S, D), the same on every 'model'
+    rank; w1 / w2: blocks (D/|data|, F/|model|), w3: (F/|model|, D/|data|)
+    (the reference's shard_map in_specs).  The weight blocks are
+    all-gathered over 'data' in the activation dtype, the product runs on
+    this rank's F slice, and the partial outputs are summed over 'model'
+    in the activation dtype.  Returns (B/|dp|, S, D), the same on every
+    'model' rank.  Differentiable (``models/dist.py``)."""
+    from repro_torch.models import dist
+    mesh, tp, dp = opts.mesh, opts.tp_name, _dp_axes(opts)
+    w1 = dist.unshard(w1.to(x.dtype), ("data", None), mesh, dp)
+    w2 = dist.unshard(w2.to(x.dtype), ("data", None), mesh, dp)
+    w3 = dist.unshard(w3.to(x.dtype), (None, "data"), mesh, dp)
+    x = dist.copy_to(x, mesh, tp)
+    h = (x @ w1) * F.silu(x @ w2)
+    return dist.reduce_from(h @ w3, mesh, tp)
+
+
+def explicit_tp_matmul(x, w, opts, *, row: bool):
+    """Column- / row-parallel projection with explicit collectives, per
+    rank; the *flattened* feature dim is sharded (always divisible by
+    |model|, unlike head counts).
+
+    row: x (B/|dp|, S, K/|model|), w block (K/|model|, N/|data|); returns
+    the (B/|dp|, S, N) sum over 'model' of the partial products.
+    column: x (B/|dp|, S, K), the same on every 'model' rank, w block
+    (K/|data|, N/|model|); returns this rank's (B/|dp|, S, N/|model|).
+    The weight block is all-gathered over 'data' in the activation
+    dtype."""
+    from repro_torch.models import dist
+    mesh, tp, dp = opts.mesh, opts.tp_name, _dp_axes(opts)
+    if row:
+        w = dist.unshard(w.to(x.dtype), (None, "data"), mesh, dp)
+        return dist.reduce_from(x @ w, mesh, tp)
+    w = dist.unshard(w.to(x.dtype), ("data", None), mesh, dp)
+    return dist.copy_to(x, mesh, tp) @ w
+
+
 def gelu_mlp(x, w1, b1, w3, b3):
     # the reference's jax.nn.gelu defaults to the tanh approximation
     return F.gelu(x @ w1 + b1, approximate="tanh") @ w3 + b3

@@ -10,6 +10,7 @@ the trainer and the tests use:
     hidden(params, batch)                   -> hidden states
     param_specs() / init(seed)
     cache_specs(batch, max_len) / init_cache(batch, max_len)
+    input_specs(shape) / dummy_inputs(shape, seed)
 
 Batches are dicts: {"tokens": (B, S) int, ["labels": (B, S) int],
 ["prefix_embeds": (B, P, D)]}.  Every family of the zoo runs: the
@@ -22,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.registry import ModelConfig
+from repro_torch.configs.registry import ModelConfig, ShapeSpec
 from repro_torch.models import hymba, rwkv6, transformer
 from repro_torch.models.transformer import RunOptions
 
@@ -96,6 +97,50 @@ class Model:
     def init_cache(self, batch: int, max_len: int):
         return self._m.init_cache(self.cfg, batch, max_len, self.opts,
                                   self.device)
+
+    # ---- inputs -----------------------------------------------------------
+    def input_specs(self, shape: ShapeSpec) -> dict:
+        """Meta-device stand-ins (shape and dtype, no storage) for every
+        model input of a cell: tokens (int32), labels when training, and
+        the vlm family's precomputed prefix embeddings."""
+        cfg = self.cfg
+        b = shape.global_batch
+
+        def spec(shape_, dtype):
+            return torch.empty(shape_, dtype=dtype, device="meta")
+
+        if shape.kind == "decode":
+            return {"tokens": spec((b, 1), torch.int32)}
+        s = shape.seq_len
+        specs = {}
+        if cfg.frontend == "vit" and cfg.n_prefix:
+            s_tok = s - cfg.n_prefix
+            specs["prefix_embeds"] = spec((b, cfg.n_prefix, cfg.d_model),
+                                          self.opts.act_dtype)
+        else:
+            s_tok = s
+        specs["tokens"] = spec((b, s_tok), torch.int32)
+        if shape.kind == "train":
+            specs["labels"] = spec((b, s_tok), torch.int32)
+        return specs
+
+    def dummy_inputs(self, shape: ShapeSpec, seed: int) -> dict:
+        """Inputs of :meth:`input_specs`' shapes on the model's device,
+        drawn from a generator seeded with ``seed``: token ids uniform in
+        [0, vocab), embeddings standard normal."""
+        g = torch.Generator(device=self.device)
+        g.manual_seed(seed)
+        out = {}
+        for name, s in self.input_specs(shape).items():
+            if s.dtype == torch.int32:
+                out[name] = torch.randint(0, self.cfg.vocab, s.shape,
+                                          generator=g, dtype=torch.int32,
+                                          device=self.device)
+            else:
+                out[name] = torch.randn(s.shape, generator=g,
+                                        dtype=torch.float32,
+                                        device=self.device).to(s.dtype)
+        return out
 
 
 def get_model(cfg: ModelConfig, opts: RunOptions = RunOptions(),

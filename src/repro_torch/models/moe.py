@@ -116,6 +116,7 @@ def moe_ffn(x, router_w, w1, w2, w3, *, n_experts: int, top_k: int,
     xe = x.gather(1, idx.reshape(r, -1, 1).expand(-1, -1, d))
     xe = torch.where(valid.reshape(r, -1, 1), xe, torch.zeros_like(xe))
     xe = xe.reshape(r, n_experts, cap, d)
+    # xe, h, ye: no constrain hint: a rank holds its whole batch block
     h = torch.einsum("recd,edf->recf", xe, w1) * F.silu(
         torch.einsum("recd,edf->recf", xe, w2))
     ye = torch.einsum("recf,efd->recd", h, w3)            # (R, E, C, D)

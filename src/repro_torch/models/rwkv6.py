@@ -171,6 +171,7 @@ def time_mix(cfg, w, x, x_prev, s0, opts):
     r = (xr @ w["wr"]).reshape(b, t, h, kd)
     k = (xk @ w["wk"]).reshape(b, t, h, kd)
     v = (xv @ w["wv"]).reshape(b, t, h, kd)
+    # r, k, v: no constrain hint: a rank holds its whole batch block
     g = F.silu(xg @ w["wg"])
     wlog = w["w0"] + torch.tanh(xw @ w["wdec_a"]) @ w["wdec_b"]
     # log decay <= 0
@@ -211,7 +212,7 @@ def layer_full(cfg, w, x, state, opts):
     h1 = L.layer_norm(x, w["ln1_scale"], w["ln1_bias"])
     tm_out, s_fin = time_mix(cfg, w, h1, _shift(h1, state["tm"]),
                              state["wkv"], opts)
-    x = x + tm_out
+    x = x + tm_out          # no constrain: whole batch block
     h2 = L.layer_norm(x, w["ln2_scale"], w["ln2_bias"])
     x = x + channel_mix(cfg, w, h2, _shift(h2, state["cm"]))
     return x, {"wkv": s_fin, "tm": h1[:, -1], "cm": h2[:, -1]}
@@ -285,6 +286,7 @@ def forward(cfg: ModelConfig, params: dict, tokens, prefix_embeds=None,
     if mode != "prefill" and cache is not None:
         raise ValueError(f"{mode} mode writes no cache")
     b, s = tokens.shape
+    # no constrain hint: a rank holds its whole batch block
     x = params["embed"][tokens].to(opts.act_dtype)
     if mode != "prefill":
         transformer.check_differentiable(params, opts)

@@ -26,6 +26,17 @@ Modes:
     writes the cache and advances its position ``t`` in place, with ``t``
     kept on the device so a decode loop never syncs with the host.
 
+Sharded paths (``launch/steps.py`` sets ``RunOptions.mesh``): each rank
+runs its batch block.  With ``explicit_tp_ffn`` the q/k/v and output
+projections (train and prefill) and the SwiGLU FFN take this rank's
+weight blocks and run with explicit collectives over 'model'
+(``layers.explicit_tp_*``); decode with ``seq_shard_decode`` runs over
+this rank's slice of the cache's sequence (:func:`_seq_shard_decode`);
+MoE decode routes the whole batch as one row, as the reference's global
+view does, gathering it over the batch axes.  The reference's
+``constrain`` calls (GSPMD layout hints) have no counterpart: every
+other tensor here is this rank's whole batch block.
+
 Train and hidden modes allocate and write no cache, so autograd runs
 through them; with ``RunOptions.remat == "full"`` each layer is
 recomputed in backward (``torch.utils.checkpoint``) when gradients are
@@ -35,6 +46,7 @@ load-balancing loss to the aux output, and ``lm_loss`` adds 0.01 of it.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Optional
 
 import torch
@@ -54,6 +66,13 @@ class RunOptions:
     act_dtype: Any = torch.bfloat16
     use_kernels: bool = False      # CUDA kernels vs the plain attention
     logit_chunk: int = 512         # CE loss seq-chunking (memory control)
+    explicit_tp_ffn: bool = False  # explicit-collective TP projections/FFN
+    shard_constraints: bool = False  # set by the step builders (no-op here)
+    dp_spec: Any = ("data",)       # mesh axes carrying the batch
+    tp_name: str = "model"
+    sharding_mode: str = "auto"    # auto | 2d | dp_only (launch/shardings)
+    seq_shard_decode: bool = True  # sequence-sharded decode over 'model'
+    mesh: Any = None               # DeviceMesh of the sharded paths
 
 
 def chunked_lm_loss(x, head, labels, opts: RunOptions):
@@ -190,12 +209,39 @@ def _norm(cfg, w, prefix, x):
     return L.layer_norm(x, w[f"{prefix}_scale"], w[f"{prefix}_bias"])
 
 
-def _qkv(cfg, w, x, positions):
+def _use_explicit_tp(opts, mode="full_seq"):
+    return (opts is not None and opts.explicit_tp_ffn
+            and opts.mesh is not None and mode != "decode"
+            and opts.tp_name not in tuple(opts.dp_spec or ()))
+
+
+def explicit_tp_params(cfg: ModelConfig, opts: RunOptions,
+                       mode: str = "full_seq") -> set[str]:
+    """Layer weights (names without ``layers/``) that the layers take as
+    this rank's blocks in ``mode`` ("full_seq" or "decode"): the q/k/v
+    and output projections outside decode, and the dense SwiGLU FFN."""
+    names = set()
+    if _use_explicit_tp(opts, mode):
+        names |= {"wq", "wk", "wv", "wo"}
+    if _use_explicit_tp(opts) and not cfg.n_experts and cfg.mlp == "swiglu":
+        names |= {"w1", "w2", "w3"}
+    return names
+
+
+def _qkv(cfg, w, x, positions, opts=None, mode="full_seq"):
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = x @ w["wq"]
-    k = x @ w["wk"]
-    v = x @ w["wv"]
+    if _use_explicit_tp(opts, mode):
+        # column-parallel; the head dims are then gathered over 'model'
+        # (whole heads for attention, and the bias added in full)
+        from repro_torch.models import dist
+        q, k, v = (dist.gather_from(
+            L.explicit_tp_matmul(x, w[n], opts, row=False), opts.mesh,
+            opts.tp_name) for n in ("wq", "wk", "wv"))
+    else:
+        q = x @ w["wq"]
+        k = x @ w["wk"]
+        v = x @ w["wv"]
     if cfg.qkv_bias:
         q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
     q = L.apply_rope(q.reshape(b, s, h, dh), positions, cfg.rope_theta)
@@ -203,19 +249,31 @@ def _qkv(cfg, w, x, positions):
     return q, k, v.reshape(b, s, kv, dh)
 
 
-def _mlp(cfg, w, x):
+def _mlp(cfg, w, x, opts=None):
     """Returns (out, aux_loss)."""
     if cfg.n_experts:
         b, s, d = x.shape
         # decode (S == 1): the flattened batch is one routing row, so the
-        # capacity tracks the true token count
-        xr = x.reshape(1, b, d) if s == 1 else x
+        # capacity tracks the true token count; on a mesh the row is the
+        # whole batch, gathered over the batch axes
+        whole = s == 1 and opts is not None and opts.mesh is not None \
+            and opts.dp_spec
+        if whole:
+            from repro_torch.models import dist
+            x = dist.gather(x, (tuple(opts.dp_spec),), opts.mesh)
+        xr = x.reshape(1, -1, d) if s == 1 else x
         out, aux = moe.moe_ffn(
             xr, w["router"], w["moe_w1"], w["moe_w2"], w["moe_w3"],
             n_experts=cfg.n_experts, top_k=cfg.top_k,
             capacity_factor=cfg.capacity_factor)
-        return out.reshape(b, s, d), aux
+        out = out.reshape(x.shape)
+        if whole:
+            out = dist.local_block(out, (tuple(opts.dp_spec),), opts.mesh)
+        return out, aux
     if cfg.mlp == "swiglu":
+        if _use_explicit_tp(opts):
+            return L.explicit_tp_swiglu(x, w["w1"], w["w2"], w["w3"],
+                                        opts), 0.0
         return L.swiglu_mlp(x, w["w1"], w["w2"], w["w3"]), 0.0
     return L.gelu_mlp(x, w["w1"], w["b1"], w["w3"], w["b3"]), 0.0
 
@@ -230,7 +288,7 @@ def _attn_full_seq(cfg, w, x, kind, opts, q_offset=0):
     """Causal attention over a full sequence.  Returns (out, k, v)."""
     b, s, _ = x.shape
     positions = q_offset + torch.arange(s, device=x.device)
-    q, k, v = _qkv(cfg, w, x, positions)
+    q, k, v = _qkv(cfg, w, x, positions, opts)
     window, local = _masks(cfg, kind)
     if opts.use_kernels:
         from repro_torch.kernels.flash_attention import ops as fa_ops
@@ -241,7 +299,75 @@ def _attn_full_seq(cfg, w, x, kind, opts, q_offset=0):
                                 local_block=local, chunk=opts.attn_chunk,
                                 q_offset=q_offset)
     o = o.reshape(b, s, cfg.n_heads * cfg.d_head)
+    if _use_explicit_tp(opts):
+        # row-parallel over this rank's slice of the flattened heads
+        from repro_torch.models import dist
+        o = dist.scatter_to(o, opts.mesh, opts.tp_name)
+        return L.explicit_tp_matmul(o, w["wo"], opts, row=True), k, v
     return o @ w["wo"], k, v
+
+
+def _seq_shard_decode(cfg, opts, q, k_new, v_new, k_cache, v_cache, t, kind):
+    """Flash-decoding over this rank's slice of the sequence-sharded cache.
+
+    q: (B, 1, H, D) and k_new / v_new: (B, 1, KV, D) of this rank's batch
+    block; k_cache / v_cache: its (B, S_loc, KV, D) slice, number
+    ``index('model')`` of the cache's S_loc * |model| slots, written in
+    place.  Each rank
+      * writes the new token only if it owns slot t (t mod the whole ring
+        for a window / local layer),
+      * computes partial attention over its slice, validity from the
+        *global* slot index,
+      * combines the partials: an all-reduce MAX of the row maxima, then
+        all-reduce SUMs of the corrected l and acc over 'model'.
+    Returns (B, 1, H, D)."""
+    from repro_torch.models import dist
+    mesh, axis = opts.mesh, opts.tp_name
+    n_shards = dist.axis_size(mesh, axis)
+    n_rep = cfg.n_heads // cfg.n_kv_heads
+    window, local_block = _masks(cfg, kind)
+    s_loc = k_cache.shape[1]
+    w_total = s_loc * n_shards
+    pos = t.reshape(1).long()
+    slot = pos if kind in ("full", "global") else torch.remainder(pos,
+                                                                  w_total)
+    lo = dist.axis_index(mesh, axis) * s_loc
+    in_range = (slot >= lo) & (slot < lo + s_loc)
+    loc = torch.clamp(slot - lo, 0, s_loc - 1)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        cur = cache.index_select(1, loc)
+        cache.index_copy_(1, loc, torch.where(in_range, new.to(cache.dtype),
+                                              cur))
+
+    slots = lo + torch.arange(s_loc, device=q.device)
+    if kind in ("full", "global"):
+        kv_pos = slots
+        valid = kv_pos <= t
+    else:
+        kv_pos = t - torch.remainder(t - slots, w_total)
+        valid = kv_pos >= 0
+        if window is not None:
+            valid &= (t - kv_pos) < window
+        if local_block is not None:
+            valid &= kv_pos >= torch.div(t, local_block,
+                                         rounding_mode="floor") * local_block
+
+    k = L._expand_kv(k_cache, n_rep)
+    v = L._expand_kv(v_cache, n_rep)
+    s = torch.einsum("bqhd,bkhd->bhqk", L.wide(q), L.wide(k))
+    s = s * (1.0 / math.sqrt(cfg.d_head))
+    s = torch.where(valid[None, None, None, :], s,
+                    torch.full_like(s, L.NEG_INF))
+    m_loc = s.amax(dim=-1)                                # (B, H, 1)
+    p = torch.exp(s - m_loc[..., None])
+    l_loc = p.sum(dim=-1)
+    acc = torch.einsum("bhqk,bkhd->bhqd", L.wide(p.to(v.dtype)), L.wide(v))
+    m_g = dist.all_reduce(m_loc.clone(), mesh, (axis,), dist.MAX)
+    corr = torch.exp(m_loc - m_g)
+    l_g = dist.all_reduce(l_loc * corr, mesh, (axis,))
+    acc_g = dist.all_reduce(acc * corr[..., None], mesh, (axis,))
+    out = acc_g / torch.clamp(l_g[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)               # (B, 1, H, D)
 
 
 def _attn_decode(cfg, w, x, k_cache, v_cache, t, kind, opts):
@@ -250,7 +376,11 @@ def _attn_decode(cfg, w, x, k_cache, v_cache, t, kind, opts):
     full cache, or slot ``t mod W`` of a ring."""
     b = x.shape[0]
     pos = t.reshape(1)
-    q, k_new, v_new = _qkv(cfg, w, x, pos)
+    q, k_new, v_new = _qkv(cfg, w, x, pos, opts, mode="decode")
+    if opts.seq_shard_decode and opts.mesh is not None:
+        o = _seq_shard_decode(cfg, opts, q, k_new, v_new, k_cache, v_cache,
+                              t, kind)
+        return o.reshape(b, 1, cfg.n_heads * cfg.d_head) @ w["wo"]
     if kind in ("full", "global"):
         slot = pos.long()
     else:
@@ -305,7 +435,7 @@ def _sublayer(cfg, w, x, kind, opts):
     """One layer over the full sequence.  Returns (x, aux, k, v)."""
     a, k, v = _attn_full_seq(cfg, w, _norm(cfg, w, "ln1", x), kind, opts)
     x = x + a
-    out, aux = _mlp(cfg, w, _norm(cfg, w, "ln2", x))
+    out, aux = _mlp(cfg, w, _norm(cfg, w, "ln2", x), opts)
     return x + out, aux, k, v
 
 
@@ -408,7 +538,7 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens,
         x = x + _attn_decode(cfg, w, h,
                              *_layer_cache(cfg, cache, i, j, kinds[j]), t,
                              kinds[j], opts)
-        x = x + _mlp(cfg, w, _norm(cfg, w, "ln2", x))[0]
+        x = x + _mlp(cfg, w, _norm(cfg, w, "ln2", x), opts)[0]
     x = _norm(cfg, params, "final_norm", x)
     logits = _logits(x[:, 0], _head(cfg, params))
     t.add_(1)

@@ -14,6 +14,13 @@ grads, global norm, clip, bias correction with the step as fp32,
 decoupled weight decay on the fp32 copy of each parameter, cast back to
 its dtype.  The step, the learning rate and the norm stay tensors on the
 parameters' device, so an update never syncs with the host.
+
+Sharded state (``launch/steps.py``): parameters, gradients and moments
+may be DTensors of one layout, and the step a replicated one.  The update
+then runs on each rank's blocks, and a leaf's sum of squares in the
+global norm is summed over the mesh dims along which the leaf is
+*sharded* (a dim along which it is replicated holds copies, which a sum
+would count again).
 """
 from __future__ import annotations
 
@@ -22,6 +29,8 @@ import math
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +98,31 @@ def compress_residual(g: torch.Tensor, err: torch.Tensor):
     return g_hat, g32 - g_hat
 
 
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _like(local: torch.Tensor, ref):
+    """``local`` as a DTensor laid out like ``ref``, when ``ref`` is one."""
+    if not isinstance(ref, DTensor):
+        return local
+    return DTensor.from_local(local, ref.device_mesh, ref.placements,
+                              run_check=False)
+
+
+def _sum_squares(g) -> torch.Tensor:
+    """A leaf's sum of squares, over the whole leaf when it is sharded."""
+    local = _local(g)
+    sq = torch.sum(torch.square(local.to(_acc_dtype(local))))
+    if isinstance(g, DTensor):
+        for dim, placement in enumerate(g.placements):
+            # a strided shard (two mesh dims on one tensor dim) is no
+            # Shard, but it splits the leaf as one does
+            if not placement.is_replicate() and g.device_mesh.size(dim) > 1:
+                dist.all_reduce(sq, group=g.device_mesh.get_group(dim))
+    return sq
+
+
 @torch.no_grad()
 def update(cfg: AdamWConfig, params: dict, grads: dict, state: dict,
            error_feedback: Optional[dict] = None):
@@ -98,6 +132,9 @@ def update(cfg: AdamWConfig, params: dict, grads: dict, state: dict,
     grad norm and the learning rate as 0-d tensors."""
     names = sorted(params)          # the reference's leaf order
     if cfg.compress_grads:
+        if any(isinstance(g, DTensor) for g in grads.values()):
+            raise NotImplementedError("int8 compression of sharded "
+                                      "gradients is not ported")
         if error_feedback is None:
             raise ValueError("compress_grads needs an error-feedback state "
                              "(init_error_feedback)")
@@ -106,12 +143,11 @@ def update(cfg: AdamWConfig, params: dict, grads: dict, state: dict,
             grads[k], err = compress_residual(grads[k], error_feedback[k])
             error_feedback[k].copy_(err)
 
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(
-        grads[k].to(_acc_dtype(grads[k])))) for k in names))
+    gnorm = torch.sqrt(sum(_sum_squares(grads[k]) for k in names))
     scale_clip = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),
                              max=1.0)
 
-    step = state["step"] + 1
+    step = _local(state["step"]) + 1
     lr = schedule(cfg, step)
     b1c = 1.0 - torch.pow(torch.tensor(cfg.b1, device=step.device),
                           step.float())
@@ -119,14 +155,16 @@ def update(cfg: AdamWConfig, params: dict, grads: dict, state: dict,
                           step.float())
 
     for k in names:
-        p, m, v = params[k], state["m"][k], state["v"][k]
-        g = grads[k].to(m.dtype) * scale_clip
+        p, m, v = (_local(t) for t in (params[k], state["m"][k],
+                                        state["v"][k]))
+        g = _local(grads[k]).to(m.dtype) * scale_clip
         m.mul_(cfg.b1).add_((1 - cfg.b1) * g)
         v.mul_(cfg.b2).add_((1 - cfg.b2) * g * g)
         p32 = p.to(m.dtype)
         delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) + \
             cfg.weight_decay * p32
         p.copy_(p32 - lr * delta)
-    new_state = {"m": state["m"], "v": state["v"], "step": step}
+    new_state = {"m": state["m"], "v": state["v"],
+                 "step": _like(step, state["step"])}
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, new_state, error_feedback, metrics

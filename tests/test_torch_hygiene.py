@@ -2,9 +2,11 @@
 nor the reference package.
 
 ``repro_torch`` keeps its own copy of the numpy control plane, so a fresh
-interpreter that imports every port module (and ``chip_smoke.py``) must
-end with no ``jax``, ``ml_dtypes`` or ``repro`` module loaded; a source
-scan backs the runtime check up for imports inside functions.
+interpreter that imports every port module, ``chip_smoke.py`` and the
+port's examples (``examples/torch_*.py``) must end with no ``jax``,
+``ml_dtypes`` or ``repro`` module loaded, and with no process group
+created (meshes are built inside functions); a source scan backs the
+runtime check up for imports inside functions.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
 
 
 def _port_modules() -> list[str]:
@@ -30,14 +33,21 @@ def _port_modules() -> list[str]:
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
+    assert len(EXAMPLES) == 4
     code = f"""
-import importlib, json, sys
+import importlib, importlib.util, json, sys
 sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]
 for name in {_port_modules()!r} + ["chip_smoke"]:
     importlib.import_module(name)
+for path in {[str(p) for p in EXAMPLES]!r}:
+    spec = importlib.util.spec_from_file_location("example", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+import torch.distributed as dist
 bad = sorted(m for m in sys.modules
              if m in ("jax", "ml_dtypes", "repro")
              or m.startswith(("jax.", "ml_dtypes.", "repro.")))
+if dist.is_available() and dist.is_initialized():
+    bad.append("a process group")
 print(json.dumps(bad))
 """
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -53,7 +63,7 @@ FORBIDDEN = re.compile(
 
 
 def test_port_sources_name_no_jax_or_reference_import():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + EXAMPLES
     assert len(files) > 30
     offenders = [str(p.relative_to(ROOT)) for p in files
                  if FORBIDDEN.search(p.read_text())]
