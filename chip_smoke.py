@@ -67,9 +67,15 @@ Phases, in order; any failure raises and the exit code is nonzero:
    with explicit TP; 16 serve steps (the sequence-sharded decode, no
    flash-decode launch, as in the reference), each against the unsharded
    plain decode from the same state; 2 train steps against phase 6's
-   Trainer losses; then the
-   process group destroyed;
-8. report: one JSON line of kernel numbers, the card's name and power
+   Trainer losses, the second of them counted (FlopCounterMode, peak
+   memory after a reset); then the process group destroyed;
+8. dryrun (``launch/dryrun.py``: fake process groups, fake tensors, no
+   device, no kernel): the shard phase's train cell traced on a (1, 1)
+   mesh of one fake rank, its FLOPs against the card's count of the same
+   step (rel 1e-9) and its estimated peak against the card's
+   ``max_memory_allocated`` (10%); then the multi-pod example's cell,
+   InternLM2-20B train_4k on 2 x 16 x 16 (512 fake ranks), must trace;
+9. report: one JSON line of kernel numbers, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -78,6 +84,7 @@ nonzero and prints no result.  Longer outputs go to ``build/chip_smoke/``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -139,6 +146,13 @@ SLEEP_CYCLES = 4_000_000   # ~2 ms of device time at H100 clocks
 # (relative) within BF16_TOL of the unsharded path
 SHARD_BATCH, SHARD_DECODE, SHARD_TRAIN_STEPS = 8, 16, 2
 BF16_TOL = TOL["bfloat16"]
+# the dry-run phase holds its trace of the shard phase's train cell to
+# that phase's step SHARD_COUNTED_STEP (counted under FlopCounterMode,
+# peak memory read after a reset): the same aten ops run, so the FLOPs
+# agree to rounding; the traced peak (inputs + the storages alive at
+# once) within DRYRUN_PEAK_RTOL of max_memory_allocated
+SHARD_COUNTED_STEP = 1
+DRYRUN_FLOP_RTOL, DRYRUN_PEAK_RTOL = 1e-9, 0.10
 
 
 def log(msg: str) -> None:
@@ -1508,6 +1522,7 @@ def shard_phase(torch, counters: dict, smi: str, trainer_losses) -> dict:
 
     import torch.distributed as dist
     from torch.distributed.tensor import distribute_tensor
+    from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs.registry import ShapeSpec, get_config
     from repro_torch.data.pipeline import DataConfig, TokenStream
@@ -1649,18 +1664,32 @@ def shard_phase(torch, counters: dict, smi: str, trainer_losses) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     losses, norms, step_ms = [], [], []
+    counted: dict = {}
     _reset(counters)
     with deterministic(torch.device("cuda")):
         for step in range(SHARD_TRAIN_STEPS):
             batch = put(data.batch(step), in_pl[2])
             torch.cuda.synchronize()
+            if step == SHARD_COUNTED_STEP:
+                # phase 8's reference: this step's FLOPs and peak memory
+                # (the peak so far is kept for the phase's own reading)
+                counted["peak_before"] = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                counted["allocated_before"] = torch.cuda.memory_allocated()
+                flop_counter = FlopCounterMode(display=False)
+            else:
+                flop_counter = contextlib.nullcontext()
             t0 = time.perf_counter()
-            sh_params, sh_opt, m = fn(sh_params, sh_opt, batch)
+            with flop_counter:
+                sh_params, sh_opt, m = fn(sh_params, sh_opt, batch)
             torch.cuda.synchronize()
             step_ms.append((time.perf_counter() - t0) * 1e3)
+            if step == SHARD_COUNTED_STEP:
+                counted["flops"] = float(flop_counter.get_total_flops())
+                counted["peak_bytes"] = torch.cuda.max_memory_allocated()
             losses.append(float(m["loss"].full_tensor()))
             norms.append(float(m["grad_norm"].full_tensor()))
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(counted["peak_before"], torch.cuda.max_memory_allocated())
     got = _launches(counters)
     _want_launches(counters, got, "shard train")
     rel = [abs(a - b_) / abs(b_) for a, b_ in zip(losses, trainer_losses)]
@@ -1673,9 +1702,14 @@ def shard_phase(torch, counters: dict, smi: str, trainer_losses) -> dict:
             and all(r <= BF16_TOL for r in rel)):
         raise AssertionError(f"shard train: losses {losses} vs the "
                              f"Trainer's {trainer_losses}")
+    log(f"[shard] train step {SHARD_COUNTED_STEP} under FlopCounterMode: "
+        f"{counted['flops']:.6e} FLOPs, peak allocated "
+        f"{counted['peak_bytes'] / 2**30:.3f} GiB "
+        f"({counted['allocated_before'] / 2**30:.3f} GiB allocated before "
+        f"it); card: {smi}")
     out["train"] = {"launches": got, "losses": losses, "grad_norms": norms,
                     "loss_rel_err": rel, "step_ms": step_ms,
-                    "peak_bytes": peak}
+                    "peak_bytes": peak, "counted_step": counted}
     del sh_params, sh_opt, batch, m
     dist.destroy_process_group()
     store.unlink(missing_ok=True)
@@ -1683,6 +1717,81 @@ def shard_phase(torch, counters: dict, smi: str, trainer_losses) -> dict:
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_start
     log(f"[shard] phase {out['seconds']:.1f}s; process group destroyed")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: dryrun (the multi-pod dry-run, fake ranks, no device)
+# ---------------------------------------------------------------------------
+def dryrun_phase(counters: dict, smi: str, card: dict) -> dict:
+    """The dry-run (``launch/dryrun.py``) on the shard phase's train
+    cell: full-width InternLM2-1.8B, bf16, B = FULL_BATCH, S = FULL_SEQ,
+    the same ``RunOptions``, traced on fake tensors on a (1, 1) mesh under
+    a fake process group of 1, against that phase's counted step on the
+    card (``card``): FLOPs equal (rel DRYRUN_FLOP_RTOL: the same aten ops
+    run), the traced peak within DRYRUN_PEAK_RTOL of the card's
+    ``max_memory_allocated``.  Then the multi-pod example's cell
+    (InternLM2-20B train_4k on 2 x 16 x 16, 512 fake ranks) must trace.
+    Nothing launches."""
+    from repro_torch.configs.registry import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_process_group, make_test_mesh
+    from repro_torch.models.model import RunOptions
+
+    t_start = time.perf_counter()
+    _reset(counters)
+    cfg = get_config(ARCH)
+    shape = ShapeSpec("shard_train", FULL_SEQ, FULL_BATCH, "train")
+    with fake_process_group(1):
+        mesh = make_test_mesh((1, 1), device_type="cpu")
+        traced = dryrun.trace_step(cfg, shape, mesh,
+                                   RunOptions(remat="none"))
+    flop_rel = abs(traced["flops"] - card["flops"]) / card["flops"]
+    est = traced["memory"]["peak_bytes_est"]
+    peak_rel = abs(est - card["peak_bytes"]) / card["peak_bytes"]
+    log(f"[dryrun] {ARCH} train B={FULL_BATCH} S={FULL_SEQ} on a (1, 1) "
+        f"mesh of fake ranks, traced in {traced['trace_s']:.1f}s: "
+        f"{traced['flops']:.6e} FLOPs against the card's "
+        f"{card['flops']:.6e} (rel {flop_rel:.3e}, want <= "
+        f"{DRYRUN_FLOP_RTOL}); peak_bytes_est {est / 2**30:.3f} GiB "
+        f"(arguments {traced['memory']['argument_bytes'] / 2**30:.3f}, "
+        f"temp {traced['memory']['temp_bytes'] / 2**30:.3f}) against the "
+        f"card's max_memory_allocated {card['peak_bytes'] / 2**30:.3f} GiB "
+        f"(rel {peak_rel:.4f}, want <= {DRYRUN_PEAK_RTOL}); card: {smi}")
+    if not flop_rel <= DRYRUN_FLOP_RTOL:
+        raise AssertionError(f"dryrun: FLOPs {traced['flops']} vs the "
+                             f"card's {card['flops']}")
+    if not peak_rel <= DRYRUN_PEAK_RTOL:
+        raise AssertionError(f"dryrun: peak_bytes_est {est} vs the card's "
+                             f"{card['peak_bytes']}")
+    cell = dryrun.run_cell("internlm2_20b", "train_4k", multi_pod=True,
+                           save=False)
+    if cell.get("status") != "ok":
+        raise AssertionError(f"dryrun: the multi-pod example's cell "
+                             f"failed: {cell.get('error')}\n"
+                             f"{cell.get('traceback')}")
+    r = cell["roofline"]
+    log(f"[dryrun] internlm2_20b train_4k on 2x16x16 ({cell['n_chips']} "
+        f"fake ranks): traced in {cell['trace_s']:.1f}s, "
+        f"{cell['cost']['flops']:.6e} FLOPs a rank, per-rank peak "
+        f"{cell['memory']['peak_bytes_est'] / 1e9:.2f} GB, roofline "
+        f"({cell['peaks']} data sheet) compute {r['compute_s'] * 1e3:.1f} "
+        f"ms | memory {r['memory_s'] * 1e3:.1f} ms | collective "
+        f"{r['collective_s'] * 1e3:.1f} ms, useful ratio "
+        f"{r['useful_ratio']:.4f}; card: {smi}")
+    got = _launches(counters)
+    _want_launches(counters, got, "dryrun")
+    out = {"flops": traced["flops"], "card_flops": card["flops"],
+           "flop_rel_err": flop_rel, "memory": traced["memory"],
+           "card_peak_bytes": card["peak_bytes"],
+           "card_allocated_before": card["allocated_before"],
+           "peak_rel_err": peak_rel, "trace_s": traced["trace_s"],
+           "multipod": {k: cell[k] for k in ("status", "n_chips", "trace_s",
+                                             "memory", "cost", "roofline",
+                                             "collectives")},
+           "launches": got,
+           "seconds": time.perf_counter() - t_start}
+    log(f"[dryrun] phase {out['seconds']:.1f}s, launches {got}")
     return out
 
 
@@ -1799,7 +1908,10 @@ def main() -> int:
     sharded = shard_phase(torch, counters, smi,
                           trained["full_width"]["losses"])
 
-    # 8. report
+    # 8. dryrun: fake ranks, fake tensors, against phase 7's counted step
+    dried = dryrun_phase(counters, smi, sharded["train"]["counted_step"])
+
+    # 9. report
     big = timing[max(BATCHES)]
     kernels = []
     for kname, chk, src, rep in (
@@ -1847,7 +1959,7 @@ def main() -> int:
                    "mixtral_attention": mixtral, "mixtral_long": long,
                    "mixtral_serve_peak_bytes": [m_peak, m_reserved],
                    "emulate": emulated, "train": trained,
-                   "shard": sharded,
+                   "shard": sharded, "dryrun": dried,
                    "device": name, "nvidia_smi": smi}, f, indent=2)
     log(f"[done] {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": kernels}))

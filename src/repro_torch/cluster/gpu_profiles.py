@@ -12,14 +12,20 @@ A "job" = one inference request: prefill(prompt_len) + gen_len decode steps.
 split across them and each inference sharded, with a collective penalty
 that grows with g.
 
-The reference scales its analytic model by an overhead factor calibrated
-from TPU-compiled dry-run files; those files describe a TPU executable, so
-that calibration is not carried over, and the factor is the reference's
-fallback, 1.3, until a dry-run of the port exists (ROADMAP item 6).
+The analytic model is scaled by an overhead factor, the reference's rule:
+1 / useful_ratio of the port's own dry-run of the arch's ``decode_32k``
+cell on the single-pod mesh (``launch/dryrun.py``, records in
+``build/dryrun/``), clipped to [1, 4], else the fallback 1.3.  The
+port's sharded steps replicate the computation over the mesh's 'model'
+axis (``launch/steps.py``), so a dry-run's per-rank FLOPs are up to 16x
+GSPMD's and the ratio it gives clips at 4 for every arch; with no
+records the factor is 1.3.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import pathlib
 
 import numpy as np
 
@@ -28,6 +34,7 @@ from repro_torch.core.profiles import FunctionProfile, ProfileTable
 from repro_torch.launch.roofline import DevicePeaks, device_peaks
 
 DEFAULT_OVERHEAD = 1.3
+DRYRUN_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "dryrun"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +55,7 @@ class GPUFunctionProfile(FunctionProfile):
         self._cfg = cfg
         self._spec = spec
         self._overhead = overhead if overhead is not None \
-            else DEFAULT_OVERHEAD
+            else _calibrated_overhead(cfg.name)
         self._peaks = peaks if peaks is not None else device_peaks("H100")
         t1 = self._exec_ms_raw(1, 1, 1)
         super().__init__(name=cfg.name, t1_ms=t1, cold_ms=spec.cold_ms,
@@ -87,6 +94,19 @@ class GPUFunctionProfile(FunctionProfile):
             self._spec.gen_len * self._decode_ms(c.batch, c.vgpu)
         t_cpu = self._spec.cpu_ms_per_job * c.batch / (c.vcpu ** 0.7)
         return t_gpu * self.quota_factor(c, quota_vgpu) + t_cpu
+
+
+def _calibrated_overhead(arch: str) -> float:
+    """Traced-FLOPs / model-FLOPs of the arch's ``decode_32k`` single-pod
+    dry-run cell: how much wider the port's step is than the 2ND ideal."""
+    f = DRYRUN_DIR / f"{arch}__decode_32k__single.json"
+    try:
+        useful = json.loads(f.read_text())["roofline"]["useful_ratio"]
+    except (OSError, ValueError, KeyError, TypeError):
+        return DEFAULT_OVERHEAD
+    if useful and 0.02 < useful <= 1.0:
+        return float(np.clip(1.0 / useful, 1.0, 4.0))
+    return DEFAULT_OVERHEAD
 
 
 def zoo_tables(archs: list[str] | None = None,

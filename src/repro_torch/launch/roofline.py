@@ -22,14 +22,17 @@ class DevicePeaks:
     hbm_bw: float              # B/s
     link_bw: float             # NVLink, B/s each way
     fp32_flops: float          # fp32 outside the tensor cores, FLOP/s
+    hbm_bytes: float           # device memory, bytes
 
 
 # data-sheet variants, matched against the device name in order
 DEVICE_PEAKS = (
-    ("H100 NVL", DevicePeaks("H100 NVL", 835e12, 3.9e12, 300e9, 60e12)),
-    ("H100 PCIe", DevicePeaks("H100 PCIe", 756e12, 2.0e12, 300e9, 51e12)),
-    ("H100", DevicePeaks("H100 SXM", 989e12, 3.35e12, 450e9, 67e12)),
-    ("H200", DevicePeaks("H200 SXM", 989e12, 4.8e12, 450e9, 67e12)),
+    ("H100 NVL", DevicePeaks("H100 NVL", 835e12, 3.9e12, 300e9, 60e12,
+                             94e9)),
+    ("H100 PCIe", DevicePeaks("H100 PCIe", 756e12, 2.0e12, 300e9, 51e12,
+                              80e9)),
+    ("H100", DevicePeaks("H100 SXM", 989e12, 3.35e12, 450e9, 67e12, 80e9)),
+    ("H200", DevicePeaks("H200 SXM", 989e12, 4.8e12, 450e9, 67e12, 141e9)),
 )
 
 

@@ -68,13 +68,22 @@ def _rope_frequencies_on(d_head: int, theta: float, device: torch.device):
         rope_frequencies(d_head, theta).astype(np.float32)).to(device)
 
 
+def _rope_frequencies(d_head: int, theta: float, device: torch.device):
+    """The frequencies on ``device``: cached on a card; made afresh on the
+    CPU, where a copy costs no synchronisation, so that no tensor made
+    under a ``FakeTensorMode`` (the dry-run) outlives it in the cache."""
+    if device.type == "cpu":
+        return torch.from_numpy(rope_frequencies(d_head, theta))
+    return _rope_frequencies_on(d_head, theta, device)
+
+
 def apply_rope(x, positions, theta: float):
     """x: (..., S, H, D); positions: tensor broadcastable to (..., S).
 
     Half-split rotation with fp32 angles, as in the reference (fp64 for
     a float64 ``x``)."""
     x1, x2 = wide(x).chunk(2, dim=-1)
-    freqs = _rope_frequencies_on(x.shape[-1], theta, x.device).to(x1.dtype)
+    freqs = _rope_frequencies(x.shape[-1], theta, x.device).to(x1.dtype)
     angles = positions.to(x1.dtype)[..., None] * freqs  # (..., S, D/2)
     cos = torch.cos(angles)[..., None, :]                # (..., S, 1, D/2)
     sin = torch.sin(angles)[..., None, :]

@@ -34,7 +34,7 @@ from repro_torch.core.profiles import BATCHES, VCPUS, VGPUS, Config
 from repro_torch.launch import serve
 from repro_torch.launch.roofline import DevicePeaks
 
-V5E = DevicePeaks("TPU v5e", PEAK_FLOPS, HBM_BW, ICI_BW, 0.0)
+V5E = DevicePeaks("TPU v5e", PEAK_FLOPS, HBM_BW, ICI_BW, 0.0, 16e9)
 WALL_CLOCK_KEYS = {"mean_sched_overhead_ms", "p95_sched_overhead_ms"}
 QUIET = dict(log=lambda *_: None)
 
@@ -58,6 +58,14 @@ class _TickClock:
     def perf_counter(self) -> float:
         self.t += self.step_s
         return self.t
+
+
+@pytest.fixture(autouse=True)
+def no_dryrun_records(tmp_path, monkeypatch):
+    """The port's overhead calibration reads an empty directory, as the
+    reference's (``benchmarks/results/dryrun/``) is absent in this tree:
+    parity holds whatever dry-run records a local run has written."""
+    monkeypatch.setattr(gpu_profiles, "DRYRUN_DIR", tmp_path / "dryrun")
 
 
 @pytest.fixture

@@ -33,7 +33,7 @@ def _port_modules() -> list[str]:
 
 
 def test_importing_the_port_loads_no_jax_and_no_reference():
-    assert len(EXAMPLES) == 4
+    assert len(EXAMPLES) == 5
     code = f"""
 import importlib, importlib.util, json, sys
 sys.path[:0] = [{str(ROOT / 'src')!r}, {str(ROOT)!r}]
