@@ -66,15 +66,27 @@ Phases, in order; any failure raises and the exit code is nonzero:
    logits and cache against the unsharded ``Model.prefill``, and again
    with explicit TP; 16 serve steps (the sequence-sharded decode, no
    flash-decode launch, as in the reference), each against the unsharded
-   plain decode from the same state; 2 train steps against phase 6's
-   Trainer losses, the second of them counted (FlopCounterMode, peak
-   memory after a reset); then the process group destroyed;
+   plain decode from the same state; full-width RWKV6-1.6B through the
+   sharded prefill (WKV6 once a layer) against the unsharded prefill,
+   logits and state, and 16 serve steps with the state kept in its
+   layout (heads over 'model'), each against the unsharded plain decode;
+   3 train steps against phase 6's Trainer losses, the third of them
+   counted (FlopCounterMode, peak memory after a reset); the prefill is
+   counted too; then the process group destroyed;
 8. dryrun (``launch/dryrun.py``: fake process groups, fake tensors, no
    device, no kernel): the shard phase's train cell traced on a (1, 1)
    mesh of one fake rank, its FLOPs against the card's count of the same
    step (rel 1e-9) and its estimated peak against the card's
    ``max_memory_allocated`` (10%); then the multi-pod example's cell,
    InternLM2-20B train_4k on 2 x 16 x 16 (512 fake ranks), must trace;
+   then rank 0 of a 2-way and of an 8-way 'model' group on the card (a
+   fake process group, a (1, n) CUDA mesh, real bf16 tensors, full-width
+   InternLM2-1.8B): the sharded prefill (flash-attention once a layer on
+   the rank's heads) and a train step, each timed and counted under
+   FlopCounterMode: equal to the trace of the same cell on fake CUDA
+   tensors (rel 1e-9), within 2% of 1 / n of the shard phase's (1, 1)
+   count, peak within 10% of the traced one (values are not compared:
+   a fake collective moves no data);
 9. report: one JSON line of kernel numbers, the card's name and power
    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
@@ -144,15 +156,20 @@ SLEEP_CYCLES = 4_000_000   # ~2 ms of device time at H100 clocks
 # prefill at B = 8 and S = PROMPT_LEN, SHARD_DECODE serve steps, and
 # SHARD_TRAIN_STEPS train steps at the phase-6 shape; logits and losses
 # (relative) within BF16_TOL of the unsharded path
-SHARD_BATCH, SHARD_DECODE, SHARD_TRAIN_STEPS = 8, 16, 2
+SHARD_BATCH, SHARD_DECODE, SHARD_TRAIN_STEPS = 8, 16, 3
 BF16_TOL = TOL["bfloat16"]
 # the dry-run phase holds its trace of the shard phase's train cell to
 # that phase's step SHARD_COUNTED_STEP (counted under FlopCounterMode,
 # peak memory read after a reset): the same aten ops run, so the FLOPs
 # agree to rounding; the traced peak (inputs + the storages alive at
 # once) within DRYRUN_PEAK_RTOL of max_memory_allocated
-SHARD_COUNTED_STEP = 1
+SHARD_COUNTED_STEP = 2
 DRYRUN_FLOP_RTOL, DRYRUN_PEAK_RTOL = 1e-9, 0.10
+# the dry-run phase's ranks of a 'model' group of RANK_SPLITS ranks (a fake
+# process group: collectives move no data), on the card: the sharded
+# prefill and a train step counted, each within SPLIT_FLOP_RTOL of 1 / n
+# of the shard phase's (1, 1) count
+RANK_SPLITS, SPLIT_FLOP_RTOL = (2, 8), 0.02
 
 
 def log(msg: str) -> None:
@@ -277,6 +294,10 @@ def check_flash_attention(torch, fa_ops, cfg) -> dict:
         (1, 24, 24, 4, 2, 32, {"window": 8}),
         (2, 50, 90, 4, 2, 16, {"local_block": 16}),   # q_offset 40
         (1, 100, 100, 8, 2, 128, {"window": 30, "local_block": 64}),
+        # head blocks of the sharded prefill: a rank of a 2-way and of an
+        # 8-way 'model' group at full width
+        (SHARD_BATCH, PROMPT_LEN, PROMPT_LEN, h // 2, kvh // 2, d, {}),
+        (SHARD_BATCH, PROMPT_LEN, PROMPT_LEN, h // 8, kvh // 8, d, {}),
     ]
     for dtype in (torch.float32, torch.bfloat16):
         for (b, sq, skv, hh, kk, dd, masks) in small:
@@ -601,7 +622,10 @@ def check_wkv6(torch, rw_ops, rcfg) -> dict:
                 main = _worst(main, (err, margin))
     small = [  # (b, t, h, kd): padding tails, every head dim, one row
         (2, 48, 2, 8), (2, 70, 2, 16), (1, 32, 1, 128), (2, 70, 4, 128),
-        (1, 96, 2, 64), (2, 40, 3, 32), (2, 1, 2, 16)]
+        (1, 96, 2, 64), (2, 40, 3, 32), (2, 1, 2, 16),
+        # head blocks of a sharded prefill: 2- and 16-way 'model' groups
+        (SHARD_BATCH, PROMPT_LEN, h // 2, kd),
+        (SHARD_BATCH, PROMPT_LEN, h // 16, kd)]
     for dtype in (torch.float32, torch.bfloat16):
         for (b, t, hh, kk) in small:
             err, margin = case(*_wkv6_inputs(torch, g, b, t, hh, kk, dtype))
@@ -1593,7 +1617,18 @@ def shard_phase(torch, counters: dict, smi: str, trainer_losses) -> dict:
             f"unsharded prefill {out['unsharded_prefill_ms']:.3f} ms), "
             f"launches {got}, max abs err vs the unsharded prefill {errs}")
         out[name] = {"launches": got, "ms": ms, "max_abs_err": errs}
-        del args, logits, cache
+        del logits, cache
+        if not explicit:
+            # phase 8's reference: the (1, 1) step's FLOPs (the kernel is
+            # no aten op: FlopCounterMode counts everything else)
+            counter = FlopCounterMode(display=False)
+            with counter:
+                fn(*args)
+            torch.cuda.synchronize()
+            out[name]["counted_flops"] = float(counter.get_total_flops())
+            log(f"[shard] {name} under FlopCounterMode: "
+                f"{out[name]['counted_flops']:.6e} FLOPs")
+        del args
     del ref_logits, ref_cache
 
     # serve: the sequence-sharded decode against the plain unsharded one
@@ -1646,6 +1681,7 @@ def shard_phase(torch, counters: dict, smi: str, trainer_losses) -> dict:
     del sh_params, sh_cache, state, params, model, plain
     gc.collect()
     torch.cuda.empty_cache()
+    out["rwkv6"] = shard_rwkv6(torch, counters, smi, mesh, put)
 
     # train: SHARD_TRAIN_STEPS steps against the Trainer's first losses
     tr_shape = ShapeSpec("shard_train", FULL_SEQ, FULL_BATCH, "train")
@@ -1720,10 +1756,102 @@ def shard_phase(torch, counters: dict, smi: str, trainer_losses) -> dict:
     return out
 
 
+def shard_rwkv6(torch, counters: dict, smi: str, mesh, put) -> dict:
+    """Full-width RWKV6-1.6B (bf16, random weights from SEED) through the
+    sharded steps on the shard phase's mesh: the prefill at B =
+    SHARD_BATCH, S = PROMPT_LEN with the kernels (WKV6 once a layer, no
+    other kernel) against the unsharded ``Model.prefill``, logits and
+    state; then SHARD_DECODE serve steps with the state kept in its
+    layout (heads over 'model'), each against the unsharded plain decode
+    from the same state (no kernel: decode is the one-token step, as in
+    the reference).  Counters set to 0 before each run and read after."""
+    import gc
+
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs.registry import ShapeSpec, get_config
+    from repro_torch.launch import steps
+    from repro_torch.models.model import RunOptions, get_model
+
+    cfg = get_config(RWKV_ARCH)
+    opts = RunOptions(remat="none", use_kernels=True)
+    model = get_model(cfg, opts, device="cuda")
+    params = model.init(SEED)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    b, s = SHARD_BATCH, PROMPT_LEN
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=g, device="cuda")
+    ref_logits, ref_cache = model.prefill(params, {"tokens": tokens})
+    fn, in_pl, _, _, _ = steps.build_prefill_step(
+        cfg, ShapeSpec("shard_prefill", s, b, "prefill"), mesh, opts)
+    args = (put(params, in_pl[0]), put({"tokens": tokens}, in_pl[1]))
+    torch.cuda.synchronize()
+    _reset(counters)
+    t0 = time.perf_counter()
+    logits, cache = fn(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = _launches(counters)
+    _want_launches(counters, got, f"shard {RWKV_ARCH} prefill",
+                   wkv6=cfg.n_layers)
+    errs = {"logits": _gate(torch, f"shard {RWKV_ARCH} prefill logits",
+                            logits.full_tensor(), ref_logits, BF16_TOL)}
+    for k, v in cache.items():
+        errs[k] = _gate(torch, f"shard {RWKV_ARCH} prefill {k}",
+                        v.full_tensor(), ref_cache[k], BF16_TOL)
+    placements = {k: repr(v.placements) for k, v in cache.items()}
+    log(f"[shard] {RWKV_ARCH} prefill B={b} S={s}: {ms:.3f} ms (host "
+        f"clock), launches {got}, max abs err vs the unsharded prefill "
+        f"{errs}; state placements {placements}")
+    out = {"prefill": {"launches": got, "ms": ms, "max_abs_err": errs}}
+    del args, logits, cache
+
+    fn, in_pl, _, _, _ = steps.build_serve_step(
+        cfg, ShapeSpec("shard_decode", s + SHARD_DECODE, b, "decode"), mesh,
+        opts)
+    plain = get_model(cfg, dataclasses.replace(opts, use_kernels=False),
+                      device="cuda")
+    sh_params = put(params, in_pl[0])
+    sh_cache = put(ref_cache, in_pl[1])
+    nxt = tokens[:, -1:]
+    errs, step_ms = [], []
+    _reset(counters)
+    for _ in range(SHARD_DECODE):
+        tok = distribute_tensor(nxt.int(), mesh, in_pl[2])
+        state = {k: v.full_tensor().clone() for k, v in sh_cache.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, sh_cache = fn(sh_params, sh_cache, tok)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        logits = logits.full_tensor()
+        ref, state = plain.decode(params, state, nxt)
+        errs.append(_gate(torch, f"shard {RWKV_ARCH} serve logits", logits,
+                          ref, BF16_TOL))
+        for k, v in sh_cache.items():
+            errs.append(_gate(torch, f"shard {RWKV_ARCH} serve {k}",
+                              v.full_tensor(), state[k], BF16_TOL))
+        nxt = logits.argmax(-1, keepdim=True)
+    got = _launches(counters)
+    _want_launches(counters, got, f"shard {RWKV_ARCH} serve")
+    log(f"[shard] {RWKV_ARCH} serve B={b}: {SHARD_DECODE} steps, step ms "
+        f"{[round(t, 3) for t in step_ms]} (host clock; median "
+        f"{statistics.median(step_ms):.3f}), launches {got}, max abs err "
+        f"(logits and state) vs the unsharded plain decode {max(errs)}; "
+        f"card: {smi}")
+    out["serve"] = {"launches": got, "step_ms": step_ms,
+                    "max_abs_err": max(errs)}
+    del sh_params, sh_cache, state, params, model, plain, ref_cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------------------
 # phase 8: dryrun (the multi-pod dry-run, fake ranks, no device)
 # ---------------------------------------------------------------------------
-def dryrun_phase(counters: dict, smi: str, card: dict) -> dict:
+def dryrun_phase(torch, counters: dict, smi: str, card: dict,
+                 one: dict) -> dict:
     """The dry-run (``launch/dryrun.py``) on the shard phase's train
     cell: full-width InternLM2-1.8B, bf16, B = FULL_BATCH, S = FULL_SEQ,
     the same ``RunOptions``, traced on fake tensors on a (1, 1) mesh under
@@ -1731,8 +1859,10 @@ def dryrun_phase(counters: dict, smi: str, card: dict) -> dict:
     card (``card``): FLOPs equal (rel DRYRUN_FLOP_RTOL: the same aten ops
     run), the traced peak within DRYRUN_PEAK_RTOL of the card's
     ``max_memory_allocated``.  Then the multi-pod example's cell
-    (InternLM2-20B train_4k on 2 x 16 x 16, 512 fake ranks) must trace.
-    Nothing launches."""
+    (InternLM2-20B train_4k on 2 x 16 x 16, 512 fake ranks) must trace,
+    launching nothing; then one rank of each 'model' group of
+    RANK_SPLITS (:func:`rank_steps`), against ``one``, the shard phase's
+    (1, 1) counts and times."""
     from repro_torch.configs.registry import ShapeSpec, get_config
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import fake_process_group, make_test_mesh
@@ -1781,7 +1911,10 @@ def dryrun_phase(counters: dict, smi: str, card: dict) -> dict:
         f"{r['useful_ratio']:.4f}; card: {smi}")
     got = _launches(counters)
     _want_launches(counters, got, "dryrun")
-    out = {"flops": traced["flops"], "card_flops": card["flops"],
+    ranks = {n: rank_steps(torch, counters, smi, one, n)
+             for n in RANK_SPLITS}
+    out = {"ranks": ranks, "flops": traced["flops"],
+           "card_flops": card["flops"],
            "flop_rel_err": flop_rel, "memory": traced["memory"],
            "card_peak_bytes": card["peak_bytes"],
            "card_allocated_before": card["allocated_before"],
@@ -1792,6 +1925,139 @@ def dryrun_phase(counters: dict, smi: str, card: dict) -> dict:
            "launches": got,
            "seconds": time.perf_counter() - t_start}
     log(f"[dryrun] phase {out['seconds']:.1f}s, launches {got}")
+    return out
+
+
+def rank_steps(torch, counters: dict, smi: str, one: dict, n: int) -> dict:
+    """One rank of an ``n``-way 'model' group on the card: a fake process
+    group of n ranks (its collectives move no data, so no value is
+    compared here; the gloo tests hold the values), a (1, n) mesh over
+    "cuda", real bf16 tensors, full-width InternLM2-1.8B from SEED.  The
+    sharded prefill at B = SHARD_BATCH, S = PROMPT_LEN with the kernels
+    (flash-attention once a layer on this rank's heads) and a train step
+    at the shard phase's shape: each run once to warm, once timed, once
+    counted under ``FlopCounterMode`` with the peak memory read after a
+    reset.  Each count equals the dry-run's trace of the same cell on
+    fake CUDA tensors (rel DRYRUN_FLOP_RTOL), lies within SPLIT_FLOP_RTOL
+    of 1 / n of the (1, 1) count, and the card's peak within
+    DRYRUN_PEAK_RTOL of the traced one.  A fake backend that refuses CUDA
+    tensors fails the phase."""
+    import gc
+
+    from torch.distributed.tensor import distribute_tensor
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.registry import ShapeSpec, get_config
+    from repro_torch.data.pipeline import DataConfig, TokenStream
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.launch.mesh import fake_process_group, make_test_mesh
+    from repro_torch.models.model import RunOptions, get_model
+    from repro_torch.optim import adamw
+
+    cfg = get_config(ARCH)
+    pre_shape = ShapeSpec("shard_prefill", PROMPT_LEN, SHARD_BATCH,
+                          "prefill")
+    tr_shape = ShapeSpec("shard_train", FULL_SEQ, FULL_BATCH, "train")
+    pre_opts = RunOptions(remat="none", use_kernels=True)
+    tr_opts = RunOptions(remat="none")
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=20,
+                                total_steps=FULL_STEPS)
+    out = {}
+
+    def put(tree, placements, mesh):
+        if isinstance(tree, dict):
+            return {k: put(v, placements[k], mesh) for k, v in tree.items()}
+        return distribute_tensor(tree, mesh, placements)
+
+    def settle():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def three(name, run, launches, mesh, shape, opts):
+        """Warm, timed and counted runs of ``run``; the trace; checks."""
+        for i in range(3):
+            _reset(counters)
+            settle()
+            if i == 2:
+                torch.cuda.reset_peak_memory_stats()
+                before = torch.cuda.memory_allocated()
+                counter = FlopCounterMode(display=False)
+            else:
+                counter = contextlib.nullcontext()
+            t0 = time.perf_counter()
+            with counter:
+                run(i)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            _want_launches(counters, _launches(counters),
+                           f"rank of {n} {name}", **launches)
+            if i == 1:
+                timed = ms
+        flops = float(counter.get_total_flops())
+        peak = torch.cuda.max_memory_allocated()
+        traced = dryrun.trace_step(cfg, shape, mesh, opts)
+        want = one[name] / n
+        rec = {"ms": timed, "one_ms": one[f"{name}_ms"], "flops": flops,
+               "traced_flops": traced["flops"],
+               "flop_rel_err": abs(flops - traced["flops"]) / flops,
+               "share_rel_err": abs(flops - want) / want,
+               "peak_bytes": peak, "allocated_before": before,
+               "traced_peak_bytes": traced["memory"]["peak_bytes_est"],
+               "launches": launches}
+        rec["peak_rel_err"] = abs(rec["traced_peak_bytes"] - peak) / peak
+        log(f"[dryrun] rank 0 of {n} on (1, {n}) {name}: {timed:.3f} ms "
+            f"(host clock; the (1, 1) step {one[f'{name}_ms']:.3f} ms), "
+            f"{flops:.6e} FLOPs on the card, {traced['flops']:.6e} traced "
+            f"(rel {rec['flop_rel_err']:.3e}), 1/{n} of the (1, 1) "
+            f"{one[name]:.6e} within {rec['share_rel_err']:.4f}; peak "
+            f"{peak / 2**30:.3f} GiB ({before / 2**30:.3f} before), traced "
+            f"{rec['traced_peak_bytes'] / 2**30:.3f} GiB (rel "
+            f"{rec['peak_rel_err']:.4f}); launches {launches}; card: {smi}")
+        if not rec["flop_rel_err"] <= DRYRUN_FLOP_RTOL:
+            raise AssertionError(f"rank of {n} {name}: FLOPs {flops} vs "
+                                 f"the trace's {traced['flops']}")
+        if not rec["share_rel_err"] <= SPLIT_FLOP_RTOL:
+            raise AssertionError(f"rank of {n} {name}: FLOPs {flops}, not "
+                                 f"1/{n} of the (1, 1) {one[name]}")
+        if not rec["peak_rel_err"] <= DRYRUN_PEAK_RTOL:
+            raise AssertionError(f"rank of {n} {name}: peak {peak} vs the "
+                                 f"trace's {rec['traced_peak_bytes']}")
+        return rec
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab, (SHARD_BATCH, PROMPT_LEN),
+                           generator=g, device="cuda")
+    with fake_process_group(n):
+        mesh = make_test_mesh((1, n), device_type="cuda")
+        fn, in_pl, _, _, _ = steps.build_prefill_step(cfg, pre_shape, mesh,
+                                                      pre_opts)
+        params = get_model(cfg, pre_opts, device="cuda").init(SEED)
+        args = (put(params, in_pl[0], mesh),
+                put({"tokens": tokens}, in_pl[1], mesh))
+        del params
+        out["prefill"] = three(
+            "prefill", lambda i: fn(*args),
+            {"flash_attention": cfg.n_layers}, mesh, pre_shape, pre_opts)
+        del args
+        fn, in_pl, _, _, _ = steps.build_train_step(cfg, tr_shape, mesh,
+                                                    tr_opts, opt_cfg)
+        params = get_model(cfg, tr_opts, device="cuda").init(SEED)
+        state = [put(params, in_pl[0], mesh),
+                 put(adamw.init(params), in_pl[1], mesh)]
+        del params
+        data = TokenStream(DataConfig(vocab=cfg.vocab, seq_len=FULL_SEQ,
+                                      global_batch=FULL_BATCH),
+                           device="cuda")
+        batches = [put(data.batch(i), in_pl[2], mesh) for i in range(3)]
+
+        def train(i):
+            state[0], state[1], _ = fn(state[0], state[1], batches[i])
+
+        out["train"] = three("train", train, {}, mesh, tr_shape, tr_opts)
+        del state, batches, fn
+        settle()
     return out
 
 
@@ -1908,8 +2174,14 @@ def main() -> int:
     sharded = shard_phase(torch, counters, smi,
                           trained["full_width"]["losses"])
 
-    # 8. dryrun: fake ranks, fake tensors, against phase 7's counted step
-    dried = dryrun_phase(counters, smi, sharded["train"]["counted_step"])
+    # 8. dryrun: fake ranks, fake tensors, against phase 7's counted step;
+    # one rank of each 'model' group of RANK_SPLITS, on the card
+    one = {"prefill": sharded["prefill"]["counted_flops"],
+           "prefill_ms": sharded["prefill"]["ms"],
+           "train": sharded["train"]["counted_step"]["flops"],
+           "train_ms": sharded["train"]["step_ms"][1]}
+    dried = dryrun_phase(torch, counters, smi,
+                         sharded["train"]["counted_step"], one)
 
     # 9. report
     big = timing[max(BATCHES)]
@@ -1954,6 +2226,15 @@ def main() -> int:
     kernels[1]["shard"] = {
         "launches": sharded["serve"]["launches"]["flash_decode_at"],
         "decode_steps": SHARD_DECODE}
+    # each rank of the dry-run phase's 'model' groups runs flash-attention
+    # once a layer on its heads; RWKV6's sharded prefill runs WKV6 once a
+    # layer
+    kernels[0]["shard"]["rank_launches"] = {
+        n: r["prefill"]["launches"]["flash_attention"]
+        for n, r in dried["ranks"].items()}
+    kernels[2]["shard"] = {
+        "launches": sharded["rwkv6"]["prefill"]["launches"]["wkv6"],
+        "n_layers": rcfg.n_layers}
     with open(OUT / "chip_smoke.json", "w") as f:
         json.dump({"kernels": kernels, "timing": timing,
                    "mixtral_attention": mixtral, "mixtral_long": long,

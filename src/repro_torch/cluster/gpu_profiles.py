@@ -16,10 +16,10 @@ The analytic model is scaled by an overhead factor, the reference's rule:
 1 / useful_ratio of the port's own dry-run of the arch's ``decode_32k``
 cell on the single-pod mesh (``launch/dryrun.py``, records in
 ``build/dryrun/``), clipped to [1, 4], else the fallback 1.3.  The
-port's sharded steps replicate the computation over the mesh's 'model'
-axis (``launch/steps.py``), so a dry-run's per-rank FLOPs are up to 16x
-GSPMD's and the ratio it gives clips at 4 for every arch; with no
-records the factor is 1.3.
+port's sharded steps split the computation over the mesh's 'model' axis
+as GSPMD does (``launch/steps.py``), so the ratio is the step's own
+(InternLM2-20B: useful 0.506, a factor of 1.98) and does not clip; with
+no records the factor is 1.3.
 """
 from __future__ import annotations
 

@@ -5,7 +5,9 @@ through their strides, so no transposed copy is made.  A CUDA tensor
 launches the kernel in ``csrc/flash_attention.cu`` (or the call raises):
 bfloat16 takes its tensor-core route, with its tiles chosen by
 :func:`choose_tiles`, and float32 its FMA route.  A CPU tensor takes the
-plain version, :func:`flash_attention_oracle`.
+plain version, :func:`flash_attention_oracle`.  A fake CUDA tensor (the
+dry-run's, ``launch/dryrun.py``) holds no data: the call returns an
+output of the kernel's shape and launches nothing.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import functools
 import math
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -97,6 +100,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, local_block=None,
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     b, sq, h, d = q.shape
+    if is_fake(q):
+        return torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     skv, kvh = k.shape[1], k.shape[2]
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")

@@ -14,9 +14,13 @@ data-sheet peaks (``launch/roofline.py``, the H100 SXM unless
 record goes to ``build/dryrun/<cell>.json``; a failing cell is recorded
 as an error, as a bug report, and makes ``main`` exit nonzero.
 
-The numbers are per rank, as they are.  The port's steps replicate the
-computation over 'model' (``launch/steps.py``), so a rank's FLOPs are up
-to the 'model' width times GSPMD's; they are not rescaled.
+The numbers are per rank, as they are.  The port's steps split the
+computation over 'model' as GSPMD does (``launch/steps.py``), so a
+rank's FLOPs come to the reference's per-device count where GSPMD splits
+evenly (``tests/test_torch_tensor_parallel.py``); they are not rescaled.
+A hand-written CUDA kernel is no aten op: ``FlopCounterMode`` does not
+see it, on the card or here, and on fake CUDA tensors (``device``) its
+wrapper launches nothing (``kernels/flash_attention/ops.py``).
 
 The reference's ``--causal-pair-scan`` is left out: it sets a
 ``RunOptions`` field that nothing in the reference reads, and the port's
@@ -50,15 +54,15 @@ from repro_torch.models.model import RunOptions
 DEFAULT_DEVICE = "H100 SXM"
 
 
-def _fake_inputs(specs, placements, mesh, mode):
+def _fake_inputs(specs, placements, mesh, mode, device="cpu"):
     """DTensors of the meta ``specs`` laid out by ``placements``, each
-    local block a fake tensor.  A block's shape is the spec's divided by
-    the mesh dims that shard it (``launch/steps.py`` makes every shard
-    even), computed outside fake mode."""
+    local block a fake tensor on ``device``.  A block's shape is the
+    spec's divided by the mesh dims that shard it (``launch/steps.py``
+    makes every shard even), computed outside fake mode."""
     from torch.distributed.tensor import DTensor
 
     if isinstance(specs, dict):
-        return {k: _fake_inputs(v, placements[k], mesh, mode)
+        return {k: _fake_inputs(v, placements[k], mesh, mode, device)
                 for k, v in specs.items()}
     shape = list(specs.shape)
     for i, p in enumerate(placements):
@@ -66,7 +70,7 @@ def _fake_inputs(specs, placements, mesh, mode):
         if dim is not None:
             shape[dim] //= mesh.size(i)
     with mode:
-        local = torch.empty(shape, dtype=specs.dtype)
+        local = torch.empty(shape, dtype=specs.dtype, device=device)
     return DTensor.from_local(local, mesh, placements, run_check=False,
                               shape=specs.shape, stride=specs.stride())
 
@@ -74,14 +78,15 @@ def _fake_inputs(specs, placements, mesh, mode):
 def trace_step(cfg: ModelConfig, shape: ShapeSpec, mesh,
                opts: RunOptions = RunOptions()) -> dict:
     """Build the cell's step on ``mesh`` (over an initialised process
-    group, fake or not) and run it once on fake inputs under the three
+    group, fake or not) and run it once on fake inputs on the mesh's
+    device type (the CPU's for the production mesh) under the three
     recorders: {'flops', 'bytes', 'memory', 'collectives', 'trace_s'}."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     t0 = time.perf_counter()
     fn, in_pl, _, input_specs, _ = build_step(cfg, shape, mesh, opts)
     mode = FakeTensorMode()
-    args = tuple(_fake_inputs(s, p, mesh, mode)
+    args = tuple(_fake_inputs(s, p, mesh, mode, mesh.device_type)
                  for s, p in zip(input_specs, in_pl))
     rec = coll.CollectiveRecorder()
     with mode, op_analysis.analyzing(args) as state, rec:

@@ -82,8 +82,13 @@ def weight_stationary_serving(cfg: ModelConfig) -> bool:
     return cfg.n_params * 2 / 16 <= 4e9
 
 
+def expert_parallel(cfg: ModelConfig) -> bool:
+    """MoE experts shard over 'model' (EP) when 16 divides their count."""
+    return bool(cfg.n_experts) and cfg.n_experts % 16 == 0
+
+
 def _transformer_layer_rules(cfg: ModelConfig) -> dict[str, P]:
-    ep = bool(cfg.n_experts) and cfg.n_experts % 16 == 0
+    ep = expert_parallel(cfg)
     rules = {
         "wq": P(None, None, FSDP, TP),
         "wk": P(None, None, FSDP, TP),

@@ -25,6 +25,15 @@ Megatron's conjugate pairs do:
   * :func:`gather_from` / :func:`scatter_to` -- all-gather / keep-own-chunk
     along one dim over one axis, each the other's backward.
 
+Tensor parallelism (:class:`Split`) breaks the first sentence above along
+'model': each rank of that axis computes its share of every product, so
+a replicated activation that feeds a split product passes through
+:func:`copy_to` (or :func:`unshard` over 'model', when each rank reads a
+different part of it), and partial products leave through
+:func:`reduce_from`.  Vocab-parallel cross-entropy adds a maximum over
+'model' (:func:`max_from`, a constant shift with no gradient) and sums
+its partial exponentials and label logits with :func:`reduce_from`.
+
 A backward that all-reduced where its forward had already summed
 (``torch.distributed.nn.functional.all_reduce`` does) would multiply the
 gradient by the axis size.
@@ -176,6 +185,69 @@ def _own_chunk(x, mesh, axis, dim):
                          f"over {n} {axis!r} ranks")
     size = x.shape[dim] // n
     return x.narrow(dim, axis_index(mesh, axis) * size, size).contiguous()
+
+
+def max_from(x, mesh, axis: str):
+    """Elementwise maximum over ``axis``, as a constant: no gradient flows
+    through it.  It is the shift of a logsumexp, whose gradient through
+    the shift cancels exactly (``torch.logsumexp`` detaches it too)."""
+    return all_reduce(x.detach().clone(), mesh, (axis,), MAX)
+
+
+def gather_parts(x, mesh, axis: str, dim: int, parts) -> torch.Tensor:
+    """The whole tensor of which rank r of ``axis`` holds the slice
+    ``parts[r] = (lo, hi)`` along ``dim``; the parts cover [0, n) in
+    order and may overlap or be empty (an uneven head split).  Each
+    element is taken from the first rank that holds it.  No gradient."""
+    dim %= x.dim()
+    width = max(hi - lo for lo, hi in parts)
+    if x.shape[dim] < width:
+        pad = list(x.shape)
+        pad[dim] = width - x.shape[dim]
+        x = torch.cat([x, x.new_zeros(pad)], dim)
+    blocks = _all_gather(x, dim, mesh, axis).split(width, dim)
+    out, covered = [], 0
+    for (lo, hi), block in zip(parts, blocks):
+        if hi > covered:
+            out.append(block.narrow(dim, covered - lo, hi - covered))
+            covered = hi
+    return torch.cat(out, dim)
+
+
+class Split:
+    """This rank's share of the 'model' axis of a mesh that splits the
+    compute (tensor parallelism).  Of n heads, channels or rows, rank r
+    of the axis's ``size`` takes ``part(n)`` = [floor(r n / size),
+    floor((r + 1) n / size)): the even block when size divides n, whole
+    heads otherwise (some ranks one more, some none)."""
+
+    def __init__(self, mesh, axis: str):
+        self.mesh, self.axis = mesh, axis
+        self.size, self.rank = axis_size(mesh, axis), axis_index(mesh, axis)
+
+    def part(self, n: int, rank: int | None = None) -> tuple[int, int]:
+        r = self.rank if rank is None else rank
+        return n * r // self.size, n * (r + 1) // self.size
+
+    def parts(self, n: int) -> list[tuple[int, int]]:
+        return [self.part(n, r) for r in range(self.size)]
+
+    def copy_to(self, x):
+        return copy_to(x, self.mesh, self.axis)
+
+    def reduce_from(self, x):
+        return reduce_from(x, self.mesh, self.axis)
+
+    def gather_from(self, x, dim: int = -1):
+        return gather_from(x, self.mesh, self.axis, dim)
+
+    def gather_read(self, x, dim: int = -1):
+        """Concatenation over the axis along ``dim`` of a tensor of which
+        each rank then reads a different part: the backward sums the
+        gradient over the axis and keeps this rank's chunk."""
+        spec = [None] * x.dim()
+        spec[dim % x.dim()] = self.axis
+        return unshard(x, spec, self.mesh, (self.axis,))
 
 
 def copy_to(x, mesh, axis: str):

@@ -18,6 +18,16 @@ Pallas kernel in the reference: prefill attention is the plain
 ``chunked_attention`` with the window mask, decode attention the plain
 ``decode_ring_attention``.
 
+Sharded steps (``launch/steps.py``) split the layer over the mesh's
+'model' axis (:func:`tp_cuts`): the attention branch as the transformer's
+(this rank's heads, ``transformer.head_split``; decode gathers the new
+token's heads and attends over this rank's slice of the ring,
+``transformer._seq_shard_decode``); the SSM on this rank's channels where
+the axis divides d_model (``w_in``'s x and z columns, ``w_dt`` on the
+gathered x, ``b_dt``, ``a_log``, ``d_skip``, the state), ``w_B`` and
+``w_C`` row-parallel (their sums feed every channel), ``w_out``
+row-parallel; the SwiGLU FFN column- then row-parallel.
+
 Parameters are a flat ``dict[str, Tensor]`` keyed by the reference's path
 names (``layers/wq``, ``embed``, ...), layer weights stacked on a leading
 n_layers axis.  The cache holds per layer a ring of keys and values, the
@@ -29,6 +39,7 @@ window (ROADMAP §3).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -159,14 +170,34 @@ def ssm_step(xm, dt, b_in, c_in, a_log, d_skip, h):
 # ---------------------------------------------------------------------------
 # Layer
 # ---------------------------------------------------------------------------
-def _mamba_branch(w, x, h0, decode: bool):
-    xm, z = (x @ w["w_in"]).chunk(2, dim=-1)   # no constrain
-    dt = F.softplus(xm @ w["w_dt"] + w["b_dt"])
-    b_in = xm @ w["w_B"]
-    c_in = xm @ w["w_C"]
+def _ssm_split(cfg: ModelConfig, opts):
+    """The ``dist.Split`` that splits the SSM's channels, where the
+    'model' axis divides d_model (as the state's spec does); else None,
+    and every rank runs all channels."""
+    tp = transformer.tp_split(opts)
+    if tp is None or cfg.d_model % tp.size:
+        return None
+    return tp
+
+
+def _mamba_branch(w, x, h0, decode: bool, tp=None):
+    if tp is None:
+        xm, z = (x @ w["w_in"]).chunk(2, dim=-1)
+        dt = F.softplus(xm @ w["w_dt"] + w["b_dt"])
+        b_in = xm @ w["w_B"]
+        c_in = xm @ w["w_C"]
+    else:
+        # this rank's channels of x_m and z; dt reads every channel of
+        # x_m; B and C sum over the channels, and every rank's scan reads
+        # them whole
+        xm, z = (tp.copy_to(x) @ w["w_in"]).chunk(2, dim=-1)
+        dt = F.softplus(tp.gather_read(xm) @ w["w_dt"] + w["b_dt"])
+        b_in = tp.copy_to(tp.reduce_from(xm @ w["w_B"]))
+        c_in = tp.copy_to(tp.reduce_from(xm @ w["w_C"]))
     step = ssm_step if decode else ssm_scan
     y, h = step(xm, dt, b_in, c_in, w["a_log"], w["d_skip"], h0)
-    return (y * F.silu(z)) @ w["w_out"], h
+    out = (y * F.silu(z)) @ w["w_out"]
+    return (out if tp is None else tp.reduce_from(out)), h
 
 
 def _attn_branch(cfg, w, x, k_ring, v_ring, t, opts):
@@ -175,18 +206,29 @@ def _attn_branch(cfg, w, x, k_ring, v_ring, t, opts):
     device): writes ring slot t mod W of ``k_ring`` / ``v_ring`` in place
     and returns (out, None, None)."""
     b, s, _ = x.shape
-    h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    dh = cfg.d_head
     positions = (torch.arange(s, device=x.device) if t is None
                  else t.reshape(1))
-    q = L.apply_rope((x @ w["wq"]).reshape(b, s, h, dh), positions,
+    tp = transformer.tp_split(opts)
+    if tp is not None:
+        x = tp.copy_to(x)
+    q, k, v = (x @ w[n] for n in ("wq", "wk", "wv"))
+    q = L.apply_rope(q.reshape(b, s, q.shape[-1] // dh, dh), positions,
                      cfg.rope_theta)
-    k = L.apply_rope((x @ w["wk"]).reshape(b, s, kv, dh), positions,
+    k = L.apply_rope(k.reshape(b, s, k.shape[-1] // dh, dh), positions,
                      cfg.rope_theta)
-    v = (x @ w["wv"]).reshape(b, s, kv, dh)
-    # q, k, v: no constrain hint: a rank holds its whole batch block
+    v = v.reshape(b, s, v.shape[-1] // dh, dh)
     if t is None:
-        o = L.chunked_attention(q, k, v, causal=True, window=cfg.window,
-                                chunk=opts.attn_chunk)
+        plain = dataclasses.replace(opts, use_kernels=False)
+        o = transformer.attend(cfg, q, k, v, plain, tp, window=cfg.window)
+    elif tp is not None:
+        hs = transformer.head_split(cfg, tp)
+        k, v = (transformer.gather_heads(cfg, tp, a) for a in (k, v))
+        q = transformer.gather_heads(cfg, tp, q, kv=False)
+        o = transformer._seq_shard_decode(cfg, opts, q, k, v, k_ring,
+                                          v_ring, t, "window")
+        o = o[:, :, hs.q_lo:hs.q_hi]
+        k = v = None
     else:
         slot = torch.remainder(positions, k_ring.shape[1]).long()
         k_ring.index_copy_(1, slot, k.to(k_ring.dtype))
@@ -194,7 +236,8 @@ def _attn_branch(cfg, w, x, k_ring, v_ring, t, opts):
         o = L.decode_ring_attention(q, k_ring, v_ring, t=t,
                                     window=cfg.window)
         k = v = None
-    return o.reshape(b, s, h * dh) @ w["wo_attn"], k, v
+    out = o.reshape(b, s, o.shape[2] * dh) @ w["wo_attn"]
+    return (out if tp is None else tp.reduce_from(out)), k, v
 
 
 def layer(cfg, w, x, k_ring, v_ring, ssm, t, opts):
@@ -204,23 +247,52 @@ def layer(cfg, w, x, k_ring, v_ring, ssm, t, opts):
     the fresh full-sequence keys / values (None in decode)."""
     hpre = L.rms_norm(x, w["ln1_scale"])
     attn_out, k, v = _attn_branch(cfg, w, hpre, k_ring, v_ring, t, opts)
-    ssm_out, h_fin = _mamba_branch(w, hpre, ssm, decode=t is not None)
+    ssm_out, h_fin = _mamba_branch(w, hpre, ssm, decode=t is not None,
+                                   tp=_ssm_split(cfg, opts))
     fused = 0.5 * (L.rms_norm(attn_out, w["fuse_attn_scale"]) +
                    L.rms_norm(ssm_out, w["fuse_ssm_scale"]))
-    x = x + fused           # no constrain: whole batch block
+    x = x + fused
     h2 = L.rms_norm(x, w["ln2_scale"])
-    x = x + L.swiglu_mlp(h2, w["w1"], w["w2"], w["w3"])
-    return x, k, v, h_fin
+    tp = transformer.tp_split(opts)
+    if tp is None:
+        return x + L.swiglu_mlp(h2, w["w1"], w["w2"], w["w3"]), k, v, h_fin
+    ffn = L.swiglu_mlp(tp.copy_to(h2), w["w1"], w["w2"], w["w3"])
+    return x + tp.reduce_from(ffn), k, v, h_fin
+
+
+def tp_cuts(cfg: ModelConfig, tp) -> dict:
+    """{parameter name: (dim, [(lo, hi), ...])}: what this rank's
+    computation reads of each whole parameter (``transformer.tp_cuts``)."""
+    dh, hs = cfg.d_head, transformer.head_split(cfg, tp)
+    q = [(hs.q_lo * dh, hs.q_hi * dh)]
+    kv = [(hs.kv_lo * dh, hs.kv_hi * dh)]
+    ff = [tp.part(cfg.d_ff)]
+    cuts = {"wq": (-1, q), "wk": (-1, kv), "wv": (-1, kv),
+            "wo_attn": (-2, q), "w1": (-1, ff), "w2": (-1, ff),
+            "w3": (-2, ff)}
+    if cfg.d_model % tp.size == 0:
+        d = cfg.d_model
+        lo, hi = tp.part(d)
+        ch = [(lo, hi)]
+        cuts.update({"w_in": (-1, [(lo, hi), (d + lo, d + hi)]),
+                     "w_dt": (-1, ch), "b_dt": (-1, ch), "a_log": (-2, ch),
+                     "d_skip": (-1, ch), "w_B": (-2, ch), "w_C": (-2, ch),
+                     "w_out": (-2, ch)})
+    out = {f"layers/{k}": v for k, v in cuts.items()}
+    out.update(transformer.vocab_cuts(cfg, tp))
+    return out
 
 
 # ---------------------------------------------------------------------------
 # Cache
 # ---------------------------------------------------------------------------
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
-                opts: RunOptions = RunOptions()) -> dict:
+                opts: RunOptions = RunOptions(), channels=None) -> dict:
     """name -> (shape, dtype); the ring is ``cache_len(cfg, max_len,
-    "window")`` slots wide."""
-    kv, dh, d, n = cfg.n_kv_heads, cfg.d_head, cfg.d_model, cfg.ssm_state
+    "window")`` slots wide, the SSM state ``channels`` wide (d_model by
+    default)."""
+    kv, dh, n = cfg.n_kv_heads, cfg.d_head, cfg.ssm_state
+    d = channels or cfg.d_model
     ls = cfg.n_layers
     w = kvcache.cache_len(cfg, max_len, "window")
     return {"t": ((), torch.int32),
@@ -230,10 +302,16 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               opts: RunOptions = RunOptions(), device=None) -> dict:
+               opts: RunOptions = RunOptions(), device=None,
+               channels=None) -> dict:
     return {name: torch.zeros(shape, dtype=dtype, device=device)
             for name, (shape, dtype) in
-            cache_specs(cfg, batch, max_len, opts).items()}
+            cache_specs(cfg, batch, max_len, opts, channels).items()}
+
+
+def _local_channels(cfg, opts) -> int:
+    tp = _ssm_split(cfg, opts)
+    return cfg.d_model if tp is None else cfg.d_model // tp.size
 
 
 # ---------------------------------------------------------------------------
@@ -245,16 +323,21 @@ def _stack(cfg, params, x, cache, t, opts):
     None (train and hidden modes) every layer starts from a zero state and
     nothing is written, so autograd can run through the stack."""
     if cache is None:
-        zero = torch.zeros((x.shape[0], cfg.d_model, cfg.ssm_state),
+        zero = torch.zeros((x.shape[0], _local_channels(cfg, opts),
+                            cfg.ssm_state),
                            dtype=L.wide(x[:0]).dtype, device=x.device)
         for w in transformer.unstack_layers(params):
             x = transformer.remat_layer(layer, opts, cfg, w, x, None, None,
                                         zero, None, opts)[0]
     else:
+        tp = transformer.tp_split(opts)
         for i, w in enumerate(transformer.unstack_layers(params)):
             x, k, v, h_fin = layer(cfg, w, x, cache["k"][i], cache["v"][i],
                                    cache["ssm"][i], t, opts)
             if t is None:
+                if tp is not None:      # the ring holds every kv head
+                    k, v = (transformer.gather_heads(cfg, tp, a)
+                            for a in (k, v))
                 kvcache.write_prompt(cache["k"][i], k)
                 kvcache.write_prompt(cache["v"][i], v)
             cache["ssm"][i].copy_(h_fin)
@@ -279,15 +362,15 @@ def forward(cfg: ModelConfig, params: dict, tokens, prefix_embeds=None,
     if mode != "prefill" and cache is not None:
         raise ValueError(f"{mode} mode writes no cache")
     b, s = tokens.shape
-    # no constrain hint: a rank holds its whole batch block
-    x = params["embed"][tokens].to(opts.act_dtype)
+    x = transformer.embed_tokens(cfg, params, tokens, opts)
     if mode != "prefill":
         x = _stack(cfg, params, x, None, None, opts)
         if mode == "hidden":
             return x, 0.0
-        return L.wide(x @ params["lm_head"].T), 0.0
+        return transformer.head_logits(cfg, x, params["lm_head"], opts), 0.0
     if cache is None:
-        cache = init_cache(cfg, b, s, opts, device=x.device)
+        cache = init_cache(cfg, b, s, opts, device=x.device,
+                           channels=_local_channels(cfg, opts))
     else:
         want = kvcache.cache_len(cfg, s, "window")
         if cache["k"].shape[2] != want:
@@ -297,7 +380,8 @@ def forward(cfg: ModelConfig, params: dict, tokens, prefix_embeds=None,
         cache["ssm"].zero_()
     x = _stack(cfg, params, x, cache, None, opts)
     cache["t"].fill_(s)
-    return L.wide(x[:, -1] @ params["lm_head"].T), cache
+    return transformer.head_logits(cfg, x[:, -1], params["lm_head"],
+                                   opts), cache
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens,
@@ -305,9 +389,9 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens,
     """tokens: (B, 1) int.  Returns (logits (B, V) fp32, cache), the ring
     written at slot t mod W, the SSM states updated and ``t`` advanced, in
     place."""
-    x = params["embed"][tokens[:, :1]].to(opts.act_dtype)
+    x = transformer.embed_tokens(cfg, params, tokens[:, :1], opts)
     x = _stack(cfg, params, x, cache, cache["t"], opts)
-    logits = L.wide(x[:, 0] @ params["lm_head"].T)
+    logits = transformer.head_logits(cfg, x[:, 0], params["lm_head"], opts)
     cache["t"].add_(1)
     return logits, cache
 
@@ -317,4 +401,5 @@ def lm_loss(cfg: ModelConfig, params: dict, tokens, labels,
     """Chunked cross-entropy over the hidden states (as the reference,
     ``prefix_embeds`` is ignored)."""
     x, _ = forward(cfg, params, tokens, None, opts, "hidden")
-    return transformer.chunked_lm_loss(x, params["lm_head"], labels, opts)
+    return transformer.chunked_lm_loss(x, params["lm_head"], labels, opts,
+                                       transformer.vocab_part(cfg, opts))

@@ -22,6 +22,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
 NEG_INF = -1e30
 
@@ -68,12 +69,16 @@ def _rope_frequencies_on(d_head: int, theta: float, device: torch.device):
         rope_frequencies(d_head, theta).astype(np.float32)).to(device)
 
 
-def _rope_frequencies(d_head: int, theta: float, device: torch.device):
+def _rope_frequencies(d_head: int, theta: float, device: torch.device,
+                      fake: bool = False):
     """The frequencies on ``device``: cached on a card; made afresh on the
-    CPU, where a copy costs no synchronisation, so that no tensor made
-    under a ``FakeTensorMode`` (the dry-run) outlives it in the cache."""
+    CPU, where a copy costs no synchronisation, and for a fake tensor (the
+    dry-run's ``FakeTensorMode``), so that no fake tensor enters the cache
+    and no real one meets the fake mode."""
     if device.type == "cpu":
         return torch.from_numpy(rope_frequencies(d_head, theta))
+    if fake:
+        return torch.from_numpy(rope_frequencies(d_head, theta)).to(device)
     return _rope_frequencies_on(d_head, theta, device)
 
 
@@ -83,7 +88,8 @@ def apply_rope(x, positions, theta: float):
     Half-split rotation with fp32 angles, as in the reference (fp64 for
     a float64 ``x``)."""
     x1, x2 = wide(x).chunk(2, dim=-1)
-    freqs = _rope_frequencies(x.shape[-1], theta, x.device).to(x1.dtype)
+    freqs = _rope_frequencies(x.shape[-1], theta, x.device,
+                              is_fake(x)).to(x1.dtype)
     angles = positions.to(x1.dtype)[..., None] * freqs  # (..., S, D/2)
     cos = torch.cos(angles)[..., None, :]                # (..., S, 1, D/2)
     sin = torch.sin(angles)[..., None, :]
@@ -259,9 +265,11 @@ def explicit_tp_matmul(x, w, opts, *, row: bool):
     return dist.copy_to(x, mesh, tp) @ w
 
 
-def gelu_mlp(x, w1, b1, w3, b3):
-    # the reference's jax.nn.gelu defaults to the tanh approximation
-    return F.gelu(x @ w1 + b1, approximate="tanh") @ w3 + b3
+def gelu_mlp(x, w1, b1, w3, b3=None):
+    # the reference's jax.nn.gelu defaults to the tanh approximation; a
+    # tensor-parallel caller adds b3 itself, once, after its sum
+    out = F.gelu(x @ w1 + b1, approximate="tanh") @ w3
+    return out if b3 is None else out + b3
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,17 @@ Per row of tokens:
 
 Routing granularity is a "row": a batch element for train and prefill,
 and the whole flattened batch for decode (``models/transformer.py``).
+
+On a tensor-parallel split (``split``, a ``dist.Split`` of 'model') every
+rank routes its tokens, which are the same on every rank of the axis, so
+routing, capacity and ties come out identical; each rank then runs its
+share of the expert GEMMs and the combined outputs are summed over
+'model': its experts on all its tokens where the rules make the experts
+parallel (``expert_parallel``, the weights (E_loc, ...), slots of other
+experts reading the zero row), else its slice of every expert's hidden
+dim (column- then row-parallel, the weights (E, D, F_loc) and (E, F_loc,
+D)).  The gates feed split products, so their gradient is summed over
+'model' (``copy_to``); the router runs whole on every rank.
 Every step is a gather, a sort or a dense product, so autograd runs
 through it; the routing indices are piecewise constant.
 """
@@ -105,18 +116,30 @@ def _aux_loss(probs, counts, n_experts: int, n_assign: int):
 
 
 def moe_ffn(x, router_w, w1, w2, w3, *, n_experts: int, top_k: int,
-            capacity_factor: float):
-    """x: (R, T, D); w1/w2: (E, D, F); w3: (E, F, D).  Returns (out,
-    aux_loss), out (R, T, D) in x's dtype."""
+            capacity_factor: float, split=None,
+            expert_parallel: bool = False):
+    """x: (R, T, D); w1/w2: (E, D, F); w3: (E, F, D) (this rank's blocks
+    on a ``split``).  Returns (out, aux_loss), out (R, T, D) in x's
+    dtype."""
     r, t, d = x.shape
     cap = capacity(t, n_experts, top_k, capacity_factor)
     idx, valid, gate, aux, slot = _route(x, router_w, n_experts, top_k, cap)
+    n_loc = n_experts
+    if split is not None:
+        x, gate = split.copy_to(x), split.copy_to(gate)
+        if expert_parallel:
+            lo, hi = split.part(n_experts)
+            n_loc = hi - lo
+            idx, valid, gate = (a[:, lo:hi] for a in (idx, valid, gate))
+            # this rank's slots first, every other expert's the zero row
+            mine = (slot >= lo * cap) & (slot < hi * cap)
+            slot = torch.where(mine, slot - lo * cap,
+                               torch.full_like(slot, n_loc * cap))
 
     # gather tokens into expert slots: (R, E, C, D)
     xe = x.gather(1, idx.reshape(r, -1, 1).expand(-1, -1, d))
     xe = torch.where(valid.reshape(r, -1, 1), xe, torch.zeros_like(xe))
-    xe = xe.reshape(r, n_experts, cap, d)
-    # xe, h, ye: no constrain hint: a rank holds its whole batch block
+    xe = xe.reshape(r, n_loc, cap, d)
     h = torch.einsum("recd,edf->recf", xe, w1) * F.silu(
         torch.einsum("recd,edf->recf", xe, w2))
     ye = torch.einsum("recf,efd->recd", h, w3)            # (R, E, C, D)
@@ -124,11 +147,13 @@ def moe_ffn(x, router_w, w1, w2, w3, *, n_experts: int, top_k: int,
 
     # combine by gather: token t reads slots slot[t * K + j], j < K, with
     # a zero row appended for the overflow bin
-    ye = torch.cat([ye.reshape(r, n_experts * cap, d),
+    ye = torch.cat([ye.reshape(r, n_loc * cap, d),
                     ye.new_zeros(r, 1, d)], dim=1)
     picked = ye.gather(1, slot.reshape(r, -1, 1).expand(-1, -1, d))
     picked = picked.reshape(r, t, top_k, d)
     out = picked[:, :, 0]
     for j in range(1, top_k):
         out = out + picked[:, :, j]
+    if split is not None:
+        out = split.reduce_from(out)
     return out.to(x.dtype), aux

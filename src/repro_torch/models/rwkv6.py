@@ -14,6 +14,18 @@ the plain version with an explicit (t, s, k) pair tensor so decay
 differences stay in log space.  Decode (T = 1) is the plain
 :func:`wkv6_step`, as in the reference.
 
+Sharded steps (``launch/steps.py``) split the layer over the mesh's
+'model' axis where it divides the head count (:func:`tp_cuts`): r, k, v
+and the gate column-parallel over heads, the decay's low-rank output,
+``w0``, ``u`` and the group norm taken for this rank's heads, WKV (the
+kernel, the chunked plain version or the one-token step) on them, ``wo``
+row-parallel and summed over 'model'; the channel mix's ``wck``
+column-parallel and ``wcv`` row-parallel, the ``wcr`` gate computed on
+this rank's channels and gathered, then applied to the sum, as the
+reference's math puts it.  The ddlerp's second low-rank product runs on
+this rank's channels and is gathered; its first, and the decay's first,
+run whole on every rank.  The state holds this rank's heads.
+
 Parameters are a flat ``dict[str, Tensor]`` keyed by the reference's path
 names (``layers/wr``, ``embed``, ...), layer weights stacked on a leading
 n_layers axis; the layer loop is a Python loop.  The cache holds the
@@ -151,29 +163,49 @@ def wkv6_step(r, k, v, lw, u, s):
 # ---------------------------------------------------------------------------
 # Layer pieces
 # ---------------------------------------------------------------------------
-def _ddlerp(w, x, x_prev):
-    """Data-dependent lerp -> [xr, xk, xv, xw, xg]."""
+def _ddlerp(w, x, x_prev, tp=None):
+    """Data-dependent lerp -> [xr, xk, xv, xw, xg].  On a split the mix's
+    low-rank output is computed for this rank's channels and gathered."""
     xx = x_prev - x
     base = x + xx * w["mu_x"]
     lora = torch.tanh(base @ w["wmix_a"])
     lora = lora.reshape(*lora.shape[:-1], 5, LORA_MIX)
-    mix = w["mu_rkvwg"] + torch.einsum("btir,ird->btid", lora, w["wmix_b"])
+    if tp is None:
+        mix = torch.einsum("btir,ird->btid", lora, w["wmix_b"])
+    else:
+        mix = tp.gather_from(torch.einsum("btir,ird->btid", tp.copy_to(lora),
+                                          w["wmix_b"]))
+    mix = w["mu_rkvwg"] + mix
     out = x[..., None, :] + xx[..., None, :] * mix          # (B, T, 5, D)
     return out.unbind(dim=-2)
 
 
+def _heads_split(cfg: ModelConfig, opts):
+    """The ``dist.Split`` that splits the time mix's heads, where the
+    'model' axis divides their count (as the state's spec does); else
+    None, and every rank runs all heads."""
+    tp = transformer.tp_split(opts)
+    if tp is None or cfg.n_heads % tp.size:
+        return None
+    return tp
+
+
 def time_mix(cfg, w, x, x_prev, s0, opts):
     """x: (B, T, D); x_prev: the same shifted by one token; s0: (B, H, K,
-    V) fp32.  Returns (out, s_fin)."""
+    V) fp32, this rank's heads on a split.  Returns (out, s_fin)."""
     b, t, d = x.shape
-    h, kd = cfg.n_heads, cfg.d_head
-    xr, xk, xv, xw, xg = _ddlerp(w, x, x_prev)
+    h, kd = w["u"].shape[0], cfg.d_head
+    tp = _heads_split(cfg, opts)
+    xr, xk, xv, xw, xg = _ddlerp(w, x, x_prev, _channel_split(cfg, opts))
+    lora = torch.tanh(xw @ w["wdec_a"])
+    if tp is not None:
+        xr, xk, xv, xg, lora = (tp.copy_to(a) for a in (xr, xk, xv, xg,
+                                                        lora))
     r = (xr @ w["wr"]).reshape(b, t, h, kd)
     k = (xk @ w["wk"]).reshape(b, t, h, kd)
     v = (xv @ w["wv"]).reshape(b, t, h, kd)
-    # r, k, v: no constrain hint: a rank holds its whole batch block
     g = F.silu(xg @ w["wg"])
-    wlog = w["w0"] + torch.tanh(xw @ w["wdec_a"]) @ w["wdec_b"]
+    wlog = w["w0"] + lora @ w["wdec_b"]
     # log decay <= 0
     lw = -torch.exp(torch.clamp(L.wide(wlog), -20.0, 4.0)).reshape(b, t, h,
                                                                    kd)
@@ -189,16 +221,51 @@ def time_mix(cfg, w, x, x_prev, s0, opts):
     mean = y.mean(-1, keepdim=True)
     var = y.var(-1, keepdim=True, unbiased=False)
     y = (y - mean) * torch.rsqrt(var + 64e-5)
-    y = y.reshape(b, t, d) * w["gn_scale"] + w["gn_bias"]
-    return (y * g).to(x.dtype) @ w["wo"], s_fin
+    y = y.reshape(b, t, h * kd) * w["gn_scale"] + w["gn_bias"]
+    out = (y * g).to(x.dtype) @ w["wo"]
+    return (out if tp is None else tp.reduce_from(out)), s_fin
 
 
-def channel_mix(cfg, w, x, x_prev):
+def channel_mix(cfg, w, x, x_prev, opts=None):
     xx = x_prev - x
     xk = x + xx * w["mu_ck"]
     xr = x + xx * w["mu_cr"]
-    kk = torch.square(torch.relu(xk @ w["wck"]))
-    return torch.sigmoid(xr @ w["wcr"]) * (kk @ w["wcv"])
+    tp = transformer.tp_split(opts)
+    if tp is None:
+        kk = torch.square(torch.relu(xk @ w["wck"]))
+        return torch.sigmoid(xr @ w["wcr"]) * (kk @ w["wcv"])
+    kk = torch.square(torch.relu(tp.copy_to(xk) @ w["wck"]))
+    if _channel_split(cfg, opts) is None:
+        gate = torch.sigmoid(xr @ w["wcr"])
+    else:
+        gate = tp.gather_from(torch.sigmoid(tp.copy_to(xr) @ w["wcr"]))
+    return gate * tp.reduce_from(kk @ w["wcv"])
+
+
+def _channel_split(cfg, opts):
+    """The split of d_model's channels (the ddlerp mix's and the ``wcr``
+    gate's outputs, gathered after), where the 'model' axis divides it."""
+    tp = transformer.tp_split(opts)
+    return None if tp is None or cfg.d_model % tp.size else tp
+
+
+def tp_cuts(cfg: ModelConfig, tp) -> dict:
+    """{parameter name: (dim, [(lo, hi)])}: what this rank's computation
+    reads of each whole parameter (``transformer.tp_cuts``)."""
+    ff = [tp.part(cfg.d_ff)]
+    cuts = {"wck": (-1, ff), "wcv": (-2, ff)}
+    if cfg.d_model % tp.size == 0:
+        ch = [tp.part(cfg.d_model)]
+        cuts.update({"wcr": (-1, ch), "wmix_b": (-1, ch)})
+    if cfg.n_heads % tp.size == 0:
+        lo, hi = tp.part(cfg.n_heads)
+        ch = (-1, [(lo * cfg.d_head, hi * cfg.d_head)])
+        cuts.update({n: ch for n in ("wr", "wk", "wv", "wg", "w0",
+                                     "wdec_b", "gn_scale", "gn_bias")})
+        cuts.update({"wo": (-2, ch[1]), "u": (-2, [(lo, hi)])})
+    out = {f"layers/{k}": v for k, v in cuts.items()}
+    out.update(transformer.vocab_cuts(cfg, tp))
+    return out
 
 
 def _shift(x, prev_last):
@@ -212,9 +279,9 @@ def layer_full(cfg, w, x, state, opts):
     h1 = L.layer_norm(x, w["ln1_scale"], w["ln1_bias"])
     tm_out, s_fin = time_mix(cfg, w, h1, _shift(h1, state["tm"]),
                              state["wkv"], opts)
-    x = x + tm_out          # no constrain: whole batch block
+    x = x + tm_out
     h2 = L.layer_norm(x, w["ln2_scale"], w["ln2_bias"])
-    x = x + channel_mix(cfg, w, h2, _shift(h2, state["cm"]))
+    x = x + channel_mix(cfg, w, h2, _shift(h2, state["cm"]), opts)
     return x, {"wkv": s_fin, "tm": h1[:, -1], "cm": h2[:, -1]}
 
 
@@ -222,10 +289,12 @@ def layer_full(cfg, w, x, state, opts):
 # Cache
 # ---------------------------------------------------------------------------
 def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
-                opts: RunOptions = RunOptions()) -> dict:
-    """name -> (shape, dtype).  The state does not grow with the sequence,
-    so ``max_len`` is accepted and ignored."""
-    h, kd, d, ls = cfg.n_heads, cfg.d_head, cfg.d_model, cfg.n_layers
+                opts: RunOptions = RunOptions(), heads=None) -> dict:
+    """name -> (shape, dtype); the state of ``heads`` heads (all by
+    default).  The state does not grow with the sequence, so ``max_len``
+    is accepted and ignored."""
+    h, kd, d, ls = heads or cfg.n_heads, cfg.d_head, cfg.d_model, \
+        cfg.n_layers
     return {"t": ((), torch.int32),
             "wkv": ((ls, batch, h, kd, kd), torch.float32),
             "tm": ((ls, batch, d), opts.act_dtype),
@@ -233,10 +302,16 @@ def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
-               opts: RunOptions = RunOptions(), device=None) -> dict:
+               opts: RunOptions = RunOptions(), device=None,
+               heads=None) -> dict:
     return {name: torch.zeros(shape, dtype=dtype, device=device)
             for name, (shape, dtype) in
-            cache_specs(cfg, batch, max_len, opts).items()}
+            cache_specs(cfg, batch, max_len, opts, heads).items()}
+
+
+def _local_heads(cfg, opts) -> int:
+    tp = _heads_split(cfg, opts)
+    return cfg.n_heads if tp is None else cfg.n_heads // tp.size
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +324,8 @@ def _stack(cfg, params, x, cache, opts):
     written, so autograd can run through the stack."""
     if cache is None:
         b = x.shape[0]
-        zero = {"wkv": torch.zeros((b, cfg.n_heads, cfg.d_head, cfg.d_head),
+        zero = {"wkv": torch.zeros((b, _local_heads(cfg, opts), cfg.d_head,
+                                    cfg.d_head),
                                    dtype=L.wide(x[:0]).dtype,
                                    device=x.device),
                 "tm": torch.zeros((b, cfg.d_model), dtype=x.dtype,
@@ -286,31 +362,32 @@ def forward(cfg: ModelConfig, params: dict, tokens, prefix_embeds=None,
     if mode != "prefill" and cache is not None:
         raise ValueError(f"{mode} mode writes no cache")
     b, s = tokens.shape
-    # no constrain hint: a rank holds its whole batch block
-    x = params["embed"][tokens].to(opts.act_dtype)
+    x = transformer.embed_tokens(cfg, params, tokens, opts)
     if mode != "prefill":
         transformer.check_differentiable(params, opts)
         x = _stack(cfg, params, x, None, opts)
         if mode == "hidden":
             return x, 0.0
-        return L.wide(x @ params["lm_head"].T), 0.0
+        return transformer.head_logits(cfg, x, params["lm_head"], opts), 0.0
     if cache is None:
-        cache = init_cache(cfg, b, s, opts, device=x.device)
+        cache = init_cache(cfg, b, s, opts, device=x.device,
+                           heads=_local_heads(cfg, opts))
     else:
         for name in ("wkv", "tm", "cm"):
             cache[name].zero_()
     x = _stack(cfg, params, x, cache, opts)
     cache["t"].fill_(s)
-    return L.wide(x[:, -1] @ params["lm_head"].T), cache
+    return transformer.head_logits(cfg, x[:, -1], params["lm_head"],
+                                   opts), cache
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens,
                 opts: RunOptions = RunOptions()):
     """tokens: (B, 1) int.  Returns (logits (B, V) fp32, cache), the states
     updated and ``t`` advanced in place."""
-    x = params["embed"][tokens[:, :1]].to(opts.act_dtype)
+    x = transformer.embed_tokens(cfg, params, tokens[:, :1], opts)
     x = _stack(cfg, params, x, cache, opts)
-    logits = L.wide(x[:, 0] @ params["lm_head"].T)
+    logits = transformer.head_logits(cfg, x[:, 0], params["lm_head"], opts)
     cache["t"].add_(1)
     return logits, cache
 
@@ -320,4 +397,5 @@ def lm_loss(cfg: ModelConfig, params: dict, tokens, labels,
     """Chunked cross-entropy over the hidden states (as the reference,
     ``prefix_embeds`` is ignored)."""
     x, _ = forward(cfg, params, tokens, None, opts, "hidden")
-    return transformer.chunked_lm_loss(x, params["lm_head"], labels, opts)
+    return transformer.chunked_lm_loss(x, params["lm_head"], labels, opts,
+                                       transformer.vocab_part(cfg, opts))

@@ -15,12 +15,15 @@ decoupled weight decay on the fp32 copy of each parameter, cast back to
 its dtype.  The step, the learning rate and the norm stay tensors on the
 parameters' device, so an update never syncs with the host.
 
-Sharded state (``launch/steps.py``): parameters, gradients and moments
-may be DTensors of one layout, and the step a replicated one.  The update
-then runs on each rank's blocks, and a leaf's sum of squares in the
-global norm is summed over the mesh dims along which the leaf is
-*sharded* (a dim along which it is replicated holds copies, which a sum
-would count again).
+Sharded state (``launch/steps.py``): parameters, gradients, moments and
+error feedback may be DTensors of one layout, and the step a replicated
+one.  The update then runs on each rank's blocks, and a leaf's sum of
+squares in the global norm is summed over the mesh dims along which the
+leaf is *sharded* (a dim along which it is replicated holds copies,
+which a sum would count again).  Int8 compression quantises each block
+with the scale of the whole leaf, as the reference's does under pjit:
+its max |g| is a MAX over those same dims; each rank keeps its block's
+residual.
 """
 from __future__ import annotations
 
@@ -78,10 +81,13 @@ def init_error_feedback(params: dict) -> dict:
             for k, p in params.items()}
 
 
-def compress_int8(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Per-tensor symmetric int8 quantisation.  ``torch.round`` rounds
-    half to even, as ``jnp.round`` does."""
-    scale = torch.clamp(g.abs().max(), min=1e-12) / 127.0
+def compress_int8(g: torch.Tensor, amax=None) -> tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """Per-tensor symmetric int8 quantisation; ``amax`` is the max |g| of
+    the whole tensor when ``g`` is a block of it (by default g's own).
+    ``torch.round`` rounds half to even, as ``jnp.round`` does."""
+    amax = g.abs().max() if amax is None else amax
+    scale = torch.clamp(amax, min=1e-12) / 127.0
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -90,16 +96,33 @@ def decompress_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def compress_residual(g: torch.Tensor, err: torch.Tensor):
-    """Quantise (g + err); return (dequantised g_hat, new residual)."""
-    g32 = g.float() + err
-    q, scale = compress_int8(g32)
+def compress_residual(g, err):
+    """Quantise (g + err); return (dequantised g_hat, new residual).  A
+    sharded leaf (DTensors) is quantised with the whole leaf's scale, and
+    both results are laid out as its blocks."""
+    g32 = _local(g).float() + _local(err)
+    q, scale = compress_int8(g32, _over_shards(g32.abs().max(), g,
+                                               dist.ReduceOp.MAX))
     g_hat = decompress_int8(q, scale)
-    return g_hat, g32 - g_hat
+    return _like(g_hat, g), _like(g32 - g_hat, err)
 
 
 def _local(t):
     return t.to_local() if isinstance(t, DTensor) else t
+
+
+def _over_shards(value: torch.Tensor, leaf, op=dist.ReduceOp.SUM):
+    """``value``, computed on this rank's block of ``leaf``, reduced by
+    ``op`` over the mesh dims along which the leaf is sharded (none for a
+    plain tensor)."""
+    if isinstance(leaf, DTensor):
+        for dim, placement in enumerate(leaf.placements):
+            # a strided shard (two mesh dims on one tensor dim) is no
+            # Shard, but it splits the leaf as one does
+            if not placement.is_replicate() and leaf.device_mesh.size(dim) > 1:
+                dist.all_reduce(value, op=op,
+                                group=leaf.device_mesh.get_group(dim))
+    return value
 
 
 def _like(local: torch.Tensor, ref):
@@ -113,14 +136,8 @@ def _like(local: torch.Tensor, ref):
 def _sum_squares(g) -> torch.Tensor:
     """A leaf's sum of squares, over the whole leaf when it is sharded."""
     local = _local(g)
-    sq = torch.sum(torch.square(local.to(_acc_dtype(local))))
-    if isinstance(g, DTensor):
-        for dim, placement in enumerate(g.placements):
-            # a strided shard (two mesh dims on one tensor dim) is no
-            # Shard, but it splits the leaf as one does
-            if not placement.is_replicate() and g.device_mesh.size(dim) > 1:
-                dist.all_reduce(sq, group=g.device_mesh.get_group(dim))
-    return sq
+    return _over_shards(torch.sum(torch.square(local.to(_acc_dtype(local)))),
+                        g)
 
 
 @torch.no_grad()
@@ -132,16 +149,13 @@ def update(cfg: AdamWConfig, params: dict, grads: dict, state: dict,
     grad norm and the learning rate as 0-d tensors."""
     names = sorted(params)          # the reference's leaf order
     if cfg.compress_grads:
-        if any(isinstance(g, DTensor) for g in grads.values()):
-            raise NotImplementedError("int8 compression of sharded "
-                                      "gradients is not ported")
         if error_feedback is None:
             raise ValueError("compress_grads needs an error-feedback state "
                              "(init_error_feedback)")
         grads = dict(grads)
         for k in names:
             grads[k], err = compress_residual(grads[k], error_feedback[k])
-            error_feedback[k].copy_(err)
+            _local(error_feedback[k]).copy_(_local(err))
 
     gnorm = torch.sqrt(sum(_sum_squares(grads[k]) for k in names))
     scale_clip = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12),

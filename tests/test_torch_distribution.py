@@ -6,10 +6,14 @@ reference's leaf by leaf for every arch x shape on a 16 x 16 and a
 rules read only a mesh's axis names and shape).
 
 Everything else runs on ``torch.distributed`` gloo groups of 1, 2 and 4
-ranks, each rank a fresh interpreter (``python -c``) that imports this
-file for its jobs, so the ranks never import jax or the reference: the
-parent computes the reference's numbers, hands the ranks their inputs as
-a torch file, and compares what rank 0 writes back.  Each group starts
+ranks (the steps split their compute over 'model': every family's train,
+prefill and serve steps, a 16-expert MoE whose experts split over
+'model', Hymba's prefill where its kv heads do not divide the axis, and
+int8 compression of sharded gradients), each rank a fresh interpreter
+(``python -c``) that imports this file for its jobs, so the ranks never
+import jax or the reference: the parent computes the reference's
+numbers, hands the ranks their inputs as a torch file, and compares what
+rank 0 writes back.  Each group starts
 through a ``FileStore`` under its own ``tmp_path`` directory, runs every
 job of its world size in one process group, and is killed when it
 outlives GROUP_TIMEOUT (the test then fails).
@@ -28,7 +32,12 @@ Tolerances (float32 throughout):
   * gradients (read from the first AdamW moment after one step, which is
     (1 - b1) x the clipped gradient) within GRAD_TOL = 1e-4 x the leaf's
     largest |m|, as tests/test_torch_train.py holds the port's gradients,
-    SPLIT_TOL x that where sums are split.
+    SPLIT_TOL x that where sums are split;
+  * int8 compression: from the same gradients the quantised gradients
+    and residuals equal the reference's exactly; through a train step,
+    whose gradients differ from the reference's by rounding, each first
+    moment within one quantisation step (the leaf's scale, times
+    (1 - b1) and the clip) plus the split tolerance.
 """
 from __future__ import annotations
 
@@ -62,7 +71,8 @@ F32 = RunOptions(attn_chunk=16, remat="none", param_dtype=torch.float32,
 SMALL = ShapeSpec("small_decode", 64, 2, "decode")
 SMALL_TRAIN = ShapeSpec("small_train", 32, 2, "train")
 SMALL_PREFILL = ShapeSpec("small_prefill", 64, 2, "prefill")
-SERVE_ARCHS = ["internlm2_20b", "mixtral_8x22b", "llama4_maverick_400b_a17b"]
+SERVE_ARCHS = ["internlm2_20b", "mixtral_8x22b", "llama4_maverick_400b_a17b",
+               "rwkv6_1_6b", "hymba_1_5b", "moe16"]
 SERVE_MESHES = [(1, 1), (1, 2), (2, 2)]
 SEQ_MESHES = [(1, 2), (1, 4)]
 SEQ_KINDS = ["full", "window", "local"]
@@ -78,12 +88,34 @@ AT_REST = [((1, 2), ("data", "model")), ((2, 1), ("data", "model")),
            ((2, 2), ("data", "model")), ((2, 2, 1), ("pod", "data", "model"))]
 AT_REST_ARCHS = ["internlm2_1_8b", "mixtral_8x22b"]
 TRAIN_ARCH, DP_ONLY_ARCH = "internlm2_1_8b", "musicgen_medium"
+# the tensor-parallel split of every family: train steps (beside
+# TRAIN_ARCH's), prefill steps, and a reduced Mixtral with 16 experts, so
+# that the rules make its experts parallel over 'model'
+EP_ARCH = "moe16"
+TP_TRAIN = [(a, m) for a in ("mixtral_8x22b", "rwkv6_1_6b", "hymba_1_5b")
+            for m in ((1, 2), (2, 2))] + [(EP_ARCH, (1, 2))]
+TP_PREFILL = [(a, m) for a in ("internlm2_1_8b", "mixtral_8x22b")
+              for m in ((1, 2), (2, 2))] + [
+    ("hymba_1_5b", (2, 2)), ("rwkv6_1_6b", (2, 2)), ("hymba_1_5b", (1, 4))]
+COMPRESS_MESHES = [(1, 2), (2, 2)]
+# the train batch's key, 1 unless named here.  Key 1 puts one position of
+# the reduced Hymba's layer-1 SSM output at rms 2.3e-3, a mean square
+# (5.2e-6) below rms_norm's eps (1e-5): its fused norm's backward then
+# amplifies float32 rounding, so that the reference's and the unsharded
+# port's float32 gradients each differ from float64 by 4.7e-4 and 7.4e-4
+# of a leaf's largest, beyond SPLIT_TOL, and no float32 split could meet
+# it.  Key 0 (that of tests/test_torch_train.py's Hymba gradient check)
+# keeps both within 2e-5 of float64.
+BATCH_KEY = {"hymba_1_5b": 0}
 # multi-pod: the moments' FSDP dim is cut over ("data", "pod"), finer than
 # the parameters', so the update runs on the moments' blocks
 POD_MESH, POD_AXES = (2, 2, 1), ("pod", "data", "model")
 
 
 def port_cfg(arch):
+    if arch == EP_ARCH:
+        return dataclasses.replace(reduced(get_config("mixtral_8x22b")),
+                                   n_experts=16)
     cfg = reduced(get_config(arch))
     # reduced() leaves Llama-4 at 2 layers, no whole macro block of 4
     return dataclasses.replace(cfg, n_layers=4) if cfg.global_every else cfg
@@ -201,21 +233,35 @@ def _job_explicit_tp(ctx, inp, fn, mesh_shape):
 
 
 def _job_train(ctx, inp, arch, mesh_shape, mode, explicit=False,
-               axes=("data", "model")):
+               axes=("data", "model"), compress=False):
     from repro_torch.launch.steps import build_train_step
     from repro_torch.optim import adamw
     mesh = ctx.mesh(mesh_shape, axes)
     opts = dataclasses.replace(F32, sharding_mode=mode,
                                explicit_tp_ffn=explicit)
     fn, in_pl, out_pl, specs, donate = build_train_step(
-        port_cfg(arch), SMALL_TRAIN, mesh, opts)
+        port_cfg(arch), SMALL_TRAIN, mesh, opts,
+        adamw.AdamWConfig(compress_grads=compress))
     params = _put(inp["params"], in_pl[0], mesh)
-    opt = _put(adamw.init(inp["params"]), in_pl[1], mesh)
+    state = adamw.init(inp["params"])
+    if compress:
+        state["err"] = adamw.init_error_feedback(inp["params"])
+    opt = _put(state, in_pl[1], mesh)
     batch = _put(inp["batch"], in_pl[2], mesh)
     params, opt, metrics = fn(params, opt, batch)
-    return {"params": _full(params), "metrics": _full(metrics),
-            "step": opt["step"].full_tensor(), "m": _full(opt["m"]),
-            "batch_placements": repr(in_pl[2]["tokens"])}
+    out = {"params": _full(params), "metrics": _full(metrics),
+           "step": opt["step"].full_tensor(), "m": _full(opt["m"]),
+           "batch_placements": repr(in_pl[2]["tokens"])}
+    if compress:
+        out["err"] = _full(opt["err"])
+        # the reference's gradients, compressed as this mesh's blocks
+        g = _put(inp["grads"], in_pl[1]["m"], mesh)
+        err = _put(adamw.init_error_feedback(inp["grads"]), in_pl[1]["m"],
+                   mesh)
+        pairs = {k: adamw.compress_residual(g[k], err[k]) for k in g}
+        out["g_hat"] = {k: v[0].full_tensor() for k, v in pairs.items()}
+        out["residual"] = {k: v[1].full_tensor() for k, v in pairs.items()}
+    return out
 
 
 def _job_prefill(ctx, inp, arch, mesh_shape, explicit=False):
@@ -227,7 +273,8 @@ def _job_prefill(ctx, inp, arch, mesh_shape, explicit=False):
     logits, cache = fn(_put(inp["params"], in_pl[0], mesh),
                        _put(inp["batch"], in_pl[1], mesh))
     return {"logits": logits.full_tensor(), "cache": _full(cache),
-            "placements": {k: repr(v.placements) for k, v in cache.items()}}
+            "placements": {k: repr(v.placements) for k, v in cache.items()},
+            "logits_placements": repr(logits.placements)}
 
 
 def _job_at_rest(ctx, inp, arch, mesh_shape, axes):
@@ -373,7 +420,11 @@ def _ref_pair(arch, seed=0):
     from repro.models.model import get_model as ref_get_model
     from repro_torch.models.convert import params_from_reference
 
-    cfg = ref_reduced(ref_get_config(arch))
+    if arch == EP_ARCH:
+        cfg = dataclasses.replace(
+            ref_reduced(ref_get_config("mixtral_8x22b")), n_experts=16)
+    else:
+        cfg = ref_reduced(ref_get_config(arch))
     if cfg.global_every:
         cfg = dataclasses.replace(cfg, n_layers=4)
     opts = RefRunOptions(attn_chunk=16, remat="none",
@@ -469,7 +520,8 @@ def _tp_inputs():
 
 
 def _train_ref(arch, mode):
-    """The reference's jitted train step on its 1x1 mesh."""
+    """The reference's jitted train step on its 1x1 mesh, on the batch
+    of key ``BATCH_KEY`` (1 by default)."""
     import jax
     import jax.numpy as jnp
 
@@ -483,7 +535,8 @@ def _train_ref(arch, mode):
     fn, in_sh, out_sh, _, _ = build_train_step(
         model.cfg, ref_shape, mesh,
         dataclasses.replace(model.opts, sharding_mode=mode))
-    batch = model.dummy_inputs(ref_shape, jax.random.PRNGKey(1))
+    batch = model.dummy_inputs(ref_shape,
+                               jax.random.PRNGKey(BATCH_KEY.get(arch, 1)))
     jtree = jax.tree.map(jnp.asarray, tree)
     with mesh:
         p2, o2, m = jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh)(
@@ -496,6 +549,43 @@ def _train_ref(arch, mode):
                  "lr": float(m["lr"]), "step": int(o2["step"]),
                  # after one step m = (1 - b1) x the clipped gradient
                  "m": _flat_np(jax.tree.map(np.asarray, o2["m"]))}
+
+
+def _compress_ref(arch):
+    """The reference's ``adamw.update`` with int8 compression on the
+    whole tree of its gradients (``jax.value_and_grad`` of the model's
+    loss, as its train step takes them), from zero error feedback; and
+    its quantised gradients and residuals leaf by leaf."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.optim import adamw as ref_adamw
+
+    model, tree, params = _ref_pair(arch)
+    batch = model.dummy_inputs(_ref_shape(SMALL_TRAIN), jax.random.PRNGKey(1))
+    jtree = jax.tree.map(jnp.asarray, tree)
+    loss, grads = jax.value_and_grad(model.loss)(jtree, batch)
+    err0 = ref_adamw.init_error_feedback(jtree)
+    p2, o2, err, m = ref_adamw.update(
+        ref_adamw.AdamWConfig(compress_grads=True), jtree, grads,
+        ref_adamw.init(jtree), err0)
+    g_np = _flat_np(jax.tree.map(np.asarray, grads))
+    inp = {"params": params,
+           "batch": {k: torch.from_numpy(np.array(v)) for k, v in
+                     batch.items()},
+           "grads": {k: torch.from_numpy(v.copy()) for k, v in g_np.items()}}
+    pick = {i: _flat_np(jax.tree.map(
+        lambda g, e: np.asarray(ref_adamw.compress_residual(g, e)[i]),
+        grads, err0)) for i in (0, 1)}
+    return inp, {"params": _flat_np(jax.tree.map(np.asarray, p2)),
+                 "loss": float(loss), "grad_norm": float(m["grad_norm"]),
+                 "lr": float(m["lr"]), "step": int(o2["step"]),
+                 "m": _flat_np(jax.tree.map(np.asarray, o2["m"])),
+                 "err": _flat_np(jax.tree.map(np.asarray, err)),
+                 # each leaf's quantisation step: max |g| / 127
+                 "scale": {k: float(np.abs(v).max()) / 127.0
+                           for k, v in g_np.items()},
+                 "g_hat": pick[0], "residual": pick[1]}
 
 
 def _ref_shape(shape):
@@ -527,8 +617,10 @@ def runs(tmp_path_factory):
     tp_inp, tp_want = _tp_inputs()
     train = _train_ref(TRAIN_ARCH, "auto")
     dp_only = _train_ref(DP_ONLY_ARCH, "dp_only")
-    prefill = {arch: _prefill_ref(arch)
-               for arch in PREFILL_ARCHS + [TRAIN_ARCH]}
+    tp_train = {a: _train_ref(a, "auto") for a in {a for a, _ in TP_TRAIN}}
+    compressed = _compress_ref(TRAIN_ARCH)
+    prefill = {arch: _prefill_ref(arch) for arch in
+               set(PREFILL_ARCHS + [TRAIN_ARCH] + [a for a, _ in TP_PREFILL])}
     base = tmp_path_factory.mktemp("dist")
     ckpt_dir = base / "ckpt"
     from repro_torch.checkpoint import checkpointing as ckpt
@@ -571,6 +663,19 @@ def runs(tmp_path_factory):
         jobs[_world(m)].append((("train_tp", m), "train", train[0],
                                 {"arch": TRAIN_ARCH, "mesh_shape": m,
                                  "mode": "auto", "explicit": True}))
+    for arch, m in TP_TRAIN:
+        jobs[_world(m)].append((("tp_train", arch, m), "train",
+                                tp_train[arch][0],
+                                {"arch": arch, "mesh_shape": m,
+                                 "mode": "auto"}))
+    for arch, m in TP_PREFILL:
+        jobs[_world(m)].append((("tp_prefill", arch, m), "prefill",
+                                prefill[arch][0],
+                                {"arch": arch, "mesh_shape": m}))
+    for m in COMPRESS_MESHES:
+        jobs[_world(m)].append((("compress", m), "train", compressed[0],
+                                {"arch": TRAIN_ARCH, "mesh_shape": m,
+                                 "mode": "auto", "compress": True}))
     for arch in AT_REST_ARCHS:
         _, tree, params = _ref_pair(arch)
         for m, axes in AT_REST:
@@ -585,6 +690,8 @@ def runs(tmp_path_factory):
     out["want"] = {"serve": {a: v[1] for a, v in serve.items()},
                    "seq": seq_want, "tp": tp_want, "train": train[1],
                    "dp_only": dp_only[1],
+                   "tp_train": {a: v[1] for a, v in tp_train.items()},
+                   "compress": compressed[1],
                    "prefill": {a: v[1] for a, v in prefill.items()},
                    "elastic": elastic_tree["w"]}
     return out
@@ -834,7 +941,72 @@ def test_explicit_tp_prefill_step_matches_reference(runs, mesh_shape):
         _close(got["cache"][k], v, SPLIT_TOL)
 
 
-# ---- 8. elastic ------------------------------------------------------------
+# ---- 8. the split over 'model', every family ------------------------------
+@pytest.mark.parametrize("arch,mesh_shape", TP_TRAIN,
+                         ids=[f"{a}-{'x'.join(map(str, m))}"
+                              for a, m in TP_TRAIN])
+def test_tensor_parallel_train_step_matches_reference(runs, arch, mesh_shape):
+    got = _result(runs, _world(mesh_shape), ("tp_train", arch, mesh_shape))
+    _check_train(got, runs["want"]["tp_train"][arch], SPLIT_TOL)
+
+
+@pytest.mark.parametrize("arch,mesh_shape", TP_PREFILL,
+                         ids=[f"{a}-{'x'.join(map(str, m))}"
+                              for a, m in TP_PREFILL])
+def test_tensor_parallel_prefill_step_matches_reference(runs, arch,
+                                                        mesh_shape):
+    got = _result(runs, _world(mesh_shape), ("tp_prefill", arch,
+                                             mesh_shape))
+    want = runs["want"]["prefill"][arch]
+    _close(got["logits"], want["logits"], SPLIT_TOL)
+    assert set(got["cache"]) == set(want["cache"])
+    for k, v in want["cache"].items():
+        _close(got["cache"][k], v, WKV_TOL if k == "wkv" else SPLIT_TOL)
+    # the logits stay split over the vocabulary ('model' is the mesh's
+    # last dim), as the reference's logits spec says
+    assert "Shard(dim=1)" in got["logits_placements"]
+
+
+@pytest.mark.parametrize("mesh_shape", COMPRESS_MESHES,
+                         ids=["x".join(map(str, m)) for m in COMPRESS_MESHES])
+def test_int8_compression_of_sharded_gradients_is_the_references(
+        runs, mesh_shape):
+    got = _result(runs, _world(mesh_shape), ("compress", mesh_shape))
+    want = runs["want"]["compress"]
+    assert set(got["g_hat"]) == set(want["g_hat"])
+    for k, v in want["g_hat"].items():
+        np.testing.assert_array_equal(got["g_hat"][k].numpy(), v, err_msg=k)
+        np.testing.assert_array_equal(got["residual"][k].numpy(),
+                                      want["residual"][k], err_msg=k)
+
+
+@pytest.mark.parametrize("mesh_shape", COMPRESS_MESHES,
+                         ids=["x".join(map(str, m)) for m in COMPRESS_MESHES])
+def test_compressed_train_step_matches_reference(runs, mesh_shape):
+    got = _result(runs, _world(mesh_shape), ("compress", mesh_shape))
+    want = runs["want"]["compress"]
+    m = got["metrics"]
+    np.testing.assert_allclose(float(m["loss"]), want["loss"], rtol=SPLIT_TOL)
+    np.testing.assert_allclose(float(m["grad_norm"]), want["grad_norm"],
+                               rtol=SPLIT_TOL)
+    np.testing.assert_allclose(float(m["lr"]), want["lr"], rtol=RANK_TOL)
+    assert int(got["step"]) == want["step"] == 1
+    for k, v in want["params"].items():
+        _close(got["params"][k], v, SPLIT_TOL)
+    clip = min(1.0, 1.0 / want["grad_norm"])
+    for k, v in want["m"].items():
+        step = 0.1 * clip * want["scale"][k]
+        np.testing.assert_allclose(
+            _np(got["m"][k]), v, rtol=0,
+            atol=step + SPLIT_TOL * float(np.abs(v).max()), err_msg=k)
+        e = want["err"][k]
+        np.testing.assert_allclose(
+            _np(got["err"][k]), e, rtol=0,
+            atol=want["scale"][k] + SPLIT_TOL * float(np.abs(e).max()),
+            err_msg=k)
+
+
+# ---- 9. elastic ------------------------------------------------------------
 def test_restore_onto_a_mesh_then_shrink_and_reshard(runs):
     got = _result(runs, 4, ("elastic",))
     want = runs["want"]["elastic"]
