@@ -13,13 +13,18 @@ Phases, in order; any failure raises and the exit code is nonzero:
    shapes and at small shapes with every mask, padding tail and head dim,
    every q-tile route of the bf16 flash-attention and the float32 route,
    flash-decode's cluster edge cases (t = 0, empty blocks, S = 4096,
-   ring masks) and every (VB, P, CPT) route of WKV6 at T = 1, 31, 33 and
-   200, with TF32 off; then the kernel's time, the plain version's time and,
-   where one exists, one PyTorch library call's time (CUDA events, median
-   of 30 launches after warmup, L2 flushed between launches, host launch
-   overhead kept out of the span), at the serving shapes and at one long
-   shape per kernel, WKV6's time on each of its routes at every serving
-   bucket and, with ``--wkv6-previous``, an earlier WKV6 design's time
+   ring masks), its static-position entry (``flash_decode``, t by value)
+   there and at Llama-4 Maverick's chunked-local ring (B = 8, S = 8192,
+   t = 8292: 101 live slots), one profiled static call (one kernel, no
+   host-to-device copy, one allocation), and every (VB, P, CPT) route of
+   WKV6 at T = 1, 31, 33 and 200, with TF32 off; then the kernel's time,
+   the plain version's time and, where one exists, one PyTorch library
+   call's time (CUDA events, median of 30 launches after warmup, L2
+   flushed between launches, host launch overhead kept out of the span),
+   at the serving shapes and at one long shape per kernel (the static
+   flash-decode beside ``flash_decode_at`` at the serving shapes, S = 4096
+   and the chunked-local ring, with SDPA given the ring's mask), WKV6's
+   time on each of its routes at every serving bucket and, with ``--wkv6-previous``, an earlier WKV6 design's time
    beside it (its source built apart from the package); flash-attention's
    window route at Mixtral-8x22B's shapes (B = 1 and 8 at S = 128, and
    B = 1 at S = 4160 and 4224, past the 4096-token window, with the rows
@@ -320,7 +325,71 @@ def _check_row(main: tuple, tol: float) -> dict:
             "rtol": tol}
 
 
-def check_flash_decode(torch, fd_ops, cfg) -> dict:
+def chunked_local_shape(lcfg) -> tuple:
+    """(b, s, t, h, kvh, d, masks) of the static flash-decode's ring timing
+    shape: a chunked-local layer of Llama-4 Maverick (its ring of
+    ``chunk_attn`` slots) at B = 8, 100 positions into its second chunk,
+    so 101 of the ring's slots are live."""
+    c = lcfg.chunk_attn
+    return (8, c, c + 100, lcfg.n_heads, lcfg.n_kv_heads, lcfg.d_head,
+            {"local_block": c})
+
+
+def decode_mask(torch, s: int, pos: int, masks: dict):
+    """The slots the decode mask admits at ``pos``, from the reference's
+    formula (src/repro/kernels/flash_decode/flash_decode.py:44-55)."""
+    slots = torch.arange(s, device="cuda")
+    window, local = masks.get("window"), masks.get("local_block")
+    if window is None and local is None:
+        return slots <= pos
+    kv_pos = pos - torch.remainder(pos - slots, s)
+    ok = kv_pos >= 0
+    if window is not None:
+        ok &= (pos - kv_pos) < window
+    if local is not None:
+        ok &= kv_pos >= (pos // local) * local
+    return ok
+
+
+def profile_static_decode(torch, fd_ops, cfg) -> dict:
+    """One static ``flash_decode`` call at the serving shape under
+    ``torch.profiler``: exactly one kernel on the device, no host-to-device
+    copy, and one allocation (the output)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    b, s = max(BATCHES), PROMPT_LEN + GEN_LEN
+    g = torch.Generator(device="cuda").manual_seed(9)
+    q = torch.randn((b, cfg.n_heads, cfg.d_head), generator=g,
+                    device="cuda").bfloat16()
+    kc, vc = (torch.randn((b, s, cfg.n_kv_heads, cfg.d_head), generator=g,
+                          device="cuda").bfloat16() for _ in range(2))
+    fd_ops.flash_decode(q, kc, vc, t=s - 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        fd_ops.flash_decode(q, kc, vc, t=s - 1)
+        allocated = torch.cuda.memory_stats()["allocation.all.allocated"] \
+            - before
+        torch.cuda.synchronize()
+    on_device = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+    copies = [n for n in on_device if "Memcpy" in n]
+    log(f"[kernels] flash_decode B={b} S={s} t={s - 1} under the profiler: "
+        f"device events {on_device}, allocations {allocated}")
+    if copies or len(on_device) != 1 or "fd_cluster_kernel" not in \
+            on_device[0] or allocated != 1:
+        raise AssertionError(f"static flash_decode: want one kernel, no "
+                             f"copy and one allocation; got {on_device}, "
+                             f"{allocated} allocations")
+    return {"device_events": on_device, "allocations": allocated}
+
+
+def check_flash_decode(torch, fd_ops, cfg, lcfg) -> tuple:
+    """Both entries against the plain version; returns the bf16 agreement
+    of ``flash_decode_at`` (the path's) and of the static ``flash_decode``
+    at the serving shapes and the chunked-local ring."""
     g = torch.Generator(device="cuda").manual_seed(2)
 
     def inputs(b, s, h, kvh, d, dtype):
@@ -333,7 +402,7 @@ def check_flash_decode(torch, fd_ops, cfg) -> dict:
 
     h, kvh, d = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     s_main = PROMPT_LEN + GEN_LEN
-    main = (0.0, 0.0)
+    main = static = (0.0, 0.0)
     for dtype in (torch.bfloat16, torch.float32):
         tol = TOL[str(dtype)[6:]]
         for b in (1, 8):
@@ -343,14 +412,19 @@ def check_flash_decode(torch, fd_ops, cfg) -> dict:
             for pos in (0, PROMPT_LEN // 2 + 3, s_main - 1):
                 t.fill_(pos)
                 out = fd_ops.flash_decode_at(q, kc, vc, t)
+                out_static = fd_ops.flash_decode(q, kc, vc, t=pos)
                 ref = fd_ops.decode_ref(q, kc, vc, t=pos)
                 torch.cuda.synchronize()
                 err, margin = _err(torch, out, ref, tol)
+                err_s, margin_s = _err(torch, out_static, ref, tol)
                 if dtype == torch.bfloat16:
                     main = _worst(main, (err, margin))
+                    static = _worst(static, (err_s, margin_s))
                 log(f"[kernels] flash_decode_at B={b} S={s_main} H={h} "
                     f"KV={kvh} D={d} t={pos} {str(dtype)[6:]}: "
-                    f"max_abs_err={err:.3e} margin={margin:.3f} tol={tol}")
+                    f"max_abs_err={err:.3e} margin={margin:.3f} tol={tol}; "
+                    f"flash_decode: max_abs_err={err_s:.3e} "
+                    f"margin={margin_s:.3f}")
     small = [  # (b, h, kvh, s, d, t, masks)
         (2, 8, 2, 1024, 64, 1023, {}),
         (2, 8, 8, 1024, 128, 700, {}),
@@ -371,9 +445,29 @@ def check_flash_decode(torch, fd_ops, cfg) -> dict:
         (2, h, kvh, 1024, d, 3000, {"window": 300}),
         (2, h, kvh, 1024, d, 2500, {"local_block": 256}),
         (1, h, kvh, 1024, d, 1500, {"window": 700, "local_block": 512}),
+        # a window's arc of live slots wrapping past slot 0
+        (2, h, kvh, 1024, d, 1100, {"window": 300}),
     ]
+    cb, cs, ct, ch, ckv, cd, cmasks = chunked_local_shape(lcfg)
     for dtype in (torch.float32, torch.bfloat16):
         tol = TOL[str(dtype)[6:]]
+        # the chunked-local ring: the static kernel walks 101 of 8192 slots
+        q, kc, vc = inputs(cb, cs, ch, ckv, cd, dtype)
+        ref = fd_ops.decode_ref(q, kc, vc, t=ct, **cmasks)
+        t = torch.full((1,), ct, dtype=torch.int32, device="cuda")
+        out_at = fd_ops.flash_decode_at(q, kc, vc, t, **cmasks)
+        out_static = fd_ops.flash_decode(q, kc, vc, t=ct, **cmasks)
+        torch.cuda.synchronize()
+        err, margin = _err(torch, out_at, ref, tol)
+        err_s, margin_s = _err(torch, out_static, ref, tol)
+        if dtype == torch.bfloat16:
+            static = _worst(static, (err_s, margin_s))
+        log(f"[kernels] flash_decode(_at) chunked-local B={cb} H={ch} "
+            f"KV={ckv} S={cs} D={cd} t={ct} {cmasks} {str(dtype)[6:]} "
+            f"(live {fd_ops.live_slots(cs, ct, **cmasks)}): "
+            f"flash_decode_at max_abs_err={err:.3e} margin={margin:.3f}; "
+            f"flash_decode max_abs_err={err_s:.3e} margin={margin_s:.3f}")
+        del q, kc, vc, ref, out_at, out_static
         for (b, hh, kk, s, dd, pos, masks) in small:
             q, kc, vc = inputs(b, s, hh, kk, dd, dtype)
             ref = fd_ops.decode_ref(q, kc, vc, t=pos, **masks)
@@ -386,15 +480,18 @@ def check_flash_decode(torch, fd_ops, cfg) -> dict:
             log(f"[kernels] flash_decode(_at) B={b} H={hh} KV={kk} S={s} "
                 f"D={dd} t={pos} {masks} {str(dtype)[6:]}: "
                 f"max_abs_err={err:.3e} margin={margin:.3f}")
-    return _check_row(main, TOL["bfloat16"])
+    return _check_row(main, TOL["bfloat16"]), _check_row(static,
+                                                         TOL["bfloat16"])
 
 
-def time_kernels(torch, fa_ops, fd_ops, cfg, peaks) -> dict:
+def time_kernels(torch, fa_ops, fd_ops, cfg, lcfg, peaks) -> dict:
     """Kernel / plain / library times at the largest serving bucket and at
     batch 1, bf16, and at one long shape per kernel: flash-attention at
     B=1 S=2048 (bound by operations) and flash-decode at B=8 S=4096 (bound
-    by bytes, the cache larger than L2); then kernel / library times at
-    every bucket of the serving lattice (each takes its own tiles)."""
+    by bytes, the cache larger than L2); the static flash-decode beside
+    the dynamic one at those decode shapes and at Llama-4's chunked-local
+    ring; then kernel / library times at every bucket of the serving
+    lattice (each takes its own tiles)."""
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(3)
@@ -423,31 +520,48 @@ def time_kernels(torch, fa_ops, fd_ops, cfg, peaks) -> dict:
             "shape": f"B={b} S={s} H={h} KV={kvh} D={d} bf16",
         }
 
-    def decode(b, s, pos, plain=True):
-        qd = torch.randn((b, h, d), generator=g, device="cuda").to(bf)
-        kc = torch.randn((b, s, kvh, d), generator=g, device="cuda").to(bf)
-        vc = torch.randn((b, s, kvh, d), generator=g, device="cuda").to(bf)
+    def decode(b, s, pos, plain=True, static=True, masks=None, hh=h,
+               kk=kvh, d=d):
+        """flash_decode_at's row and, with ``static``, flash_decode's, each
+        with its plain and SDPA times (SDPA with the decode mask as a
+        boolean ``attn_mask``, the same call for both rows); the bound
+        counts the live slots (the static kernel's walk)."""
+        masks = masks or {}
+        qd = torch.randn((b, hh, d), generator=g, device="cuda").to(bf)
+        kc = torch.randn((b, s, kk, d), generator=g, device="cuda").to(bf)
+        vc = torch.randn((b, s, kk, d), generator=g, device="cuda").to(bf)
         t = torch.full((1,), pos, dtype=torch.int32, device="cuda")
-        mask = (torch.arange(s, device="cuda") <= pos)[None, None, None, :]
+        mask = decode_mask(torch, s, pos, masks)
+        n_live = int(mask.sum())
+        mask = mask[None, None, None, :]
         qdt, kct, vct = qd[:, :, None, :], kc.transpose(1, 2), vc.transpose(1, 2)
-        nbytes = (2 * qd.numel() + 2 * b * (pos + 1) * kvh * d) * esize + 4
-        flops = 4.0 * b * h * d * (pos + 1)
-        b_ms, b_by = bound(peaks, nbytes, flops, "bfloat16")
+        nbytes = (2 * qd.numel() + 2 * b * n_live * kk * d) * esize
+        flops = 4.0 * b * hh * d * n_live
+        shape = (f"B={b} S={s} t={pos} H={hh} KV={kk} D={d}"
+                 + "".join(f" {k}={v}" for k, v in masks.items())
+                 + f" live={n_live} bf16")
+        library = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            qdt, kct, vct, attn_mask=mask, enable_gqa=True))
+        b_ms, b_by = bound(peaks, nbytes + 4, flops, "bfloat16")
         fd = {
-            "ms": time_ms(torch, lambda: fd_ops.flash_decode_at(qd, kc, vc, t)),
-            **({"plain_ms": time_ms(
-                torch, lambda: fd_ops.decode_ref(qd, kc, vc, t=t))}
-               if plain else {}),
-            "library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                qdt, kct, vct, attn_mask=mask, enable_gqa=True)),
-            "bound_ms": b_ms, "bound_by": b_by,
-            "shape": f"B={b} S={s} t={pos} H={h} KV={kvh} D={d} bf16",
+            "ms": time_ms(torch, lambda: fd_ops.flash_decode_at(
+                qd, kc, vc, t, **masks)),
+            **({"plain_ms": time_ms(torch, lambda: fd_ops.decode_ref(
+                qd, kc, vc, t=t, **masks))} if plain else {}),
+            "library_ms": library, "bound_ms": b_ms, "bound_by": b_by,
+            "shape": shape,
         }
-        if not plain:
+        if not static:
             return fd, None
-        fds = {"ms": time_ms(
-            torch, lambda: fd_ops.flash_decode(qd, kc, vc, t=pos)),
-            "shape": fd["shape"]}
+        b_ms, b_by = bound(peaks, nbytes, flops, "bfloat16")
+        fds = {
+            "ms": time_ms(torch, lambda: fd_ops.flash_decode(
+                qd, kc, vc, t=pos, **masks)),
+            "plain_ms": time_ms(torch, lambda: fd_ops.decode_ref(
+                qd, kc, vc, t=pos, **masks)),
+            "library_ms": library, "bound_ms": b_ms, "bound_by": b_by,
+            "shape": shape,
+        }
         return fd, fds
 
     # the method's floor: one launch of a one-element kernel, timed alike
@@ -459,13 +573,18 @@ def time_kernels(torch, fa_ops, fd_ops, cfg, peaks) -> dict:
         fd, fds = decode(b, s, s - 1)
         rows[b] = {"flash_attention": attention(b, PROMPT_LEN),
                    "flash_decode_at": fd, "flash_decode": fds}
+    fd, fds = decode(max(BATCHES), 4096, 4095)
     rows["long"] = {"flash_attention": attention(1, 2048),
-                    "flash_decode_at": decode(max(BATCHES), 4096, 4095)[0]}
+                    "flash_decode_at": fd, "flash_decode": fds}
+    cb, cs, ct, ch, ckv, cd, cmasks = chunked_local_shape(lcfg)
+    fd, fds = decode(cb, cs, ct, masks=cmasks, hh=ch, kk=ckv, d=cd)
+    rows["chunked_local"] = {"flash_decode_at": fd, "flash_decode": fds}
     s = PROMPT_LEN + GEN_LEN
     for b in BATCHES:
         rows[f"lattice B={b}"] = {
             "flash_attention": attention(b, PROMPT_LEN, plain=False),
-            "flash_decode_at": decode(b, s, s - 1, plain=False)[0]}
+            "flash_decode_at": decode(b, s, s - 1, plain=False,
+                                      static=False)[0]}
     for key, row in rows.items():
         for name, r in row.items():
             log(f"[timing] {name} {r['shape']}: " + " ".join(
@@ -2114,11 +2233,13 @@ def main() -> int:
     from repro_torch.launch.roofline import device_peaks
 
     cfg, rcfg = get_config(ARCH), get_config(RWKV_ARCH)
+    lcfg = get_config(LLAMA4_ARCH)
     peaks = device_peaks(name)
     fa_chk = check_flash_attention(torch, fa_ops, cfg)
-    fd_chk = check_flash_decode(torch, fd_ops, cfg)
+    fd_chk, fds_chk = check_flash_decode(torch, fd_ops, cfg, lcfg)
+    fds_profile = profile_static_decode(torch, fd_ops, cfg)
     wkv_chk = check_wkv6(torch, rw_ops, rcfg)
-    timing = time_kernels(torch, fa_ops, fd_ops, cfg, peaks)
+    timing = time_kernels(torch, fa_ops, fd_ops, cfg, lcfg, peaks)
     previous = (previous_wkv6(torch, args.wkv6_previous)
                 if args.wkv6_previous else None)
     for key, row in time_wkv6(torch, rw_ops, rcfg, peaks,
@@ -2226,6 +2347,20 @@ def main() -> int:
     kernels[1]["shard"] = {
         "launches": sharded["serve"]["launches"]["flash_decode_at"],
         "decode_steps": SHARD_DECODE}
+    # the static-position entry over the same device body: no path launches
+    # it (as in the reference, where only tests call it); its rows at the
+    # serving bucket, the long linear cache and the chunked-local ring
+    kernels[1]["static"] = {
+        "name": "flash_decode", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
+        "replaces": "src/repro/kernels/flash_decode/flash_decode.py:181",
+        "launches": launches["flash_decode"], **fds_chk,
+        **{k: big["flash_decode"][k] for k in keys},
+        "long": {k: timing["long"]["flash_decode"][k] for k in keys},
+        "chunked_local": {
+            k: timing["chunked_local"]["flash_decode"][k] for k in keys},
+        "device_events": fds_profile["device_events"],
+        "allocations": fds_profile["allocations"]}
     # each rank of the dry-run phase's 'model' groups runs flash-attention
     # once a layer on its heads; RWKV6's sharded prefill runs WKV6 once a
     # layer

@@ -1,22 +1,29 @@
 // Flash-decoding for Hopper (sm_90a), plain C interface.
 //
-// Replaces the TPU kernel `flash_decode_dynamic` / `_fd_dyn_kernel` in
-// src/repro/kernels/flash_decode/flash_decode.py (and, through a one-element
-// position tensor, the static-position `flash_decode` / `_fd_kernel`): one
-// query token per sequence against a (B, S, KV, D) cache, with the position
-// t read on the device, the linear mask slot <= t, the ring masks
+// Replaces the TPU kernels `flash_decode_dynamic` / `_fd_dyn_kernel` and
+// `flash_decode` / `_fd_kernel` in src/repro/kernels/flash_decode/
+// flash_decode.py: one query token per sequence against a (B, S, KV, D)
+// cache, with the linear mask slot <= t, the ring masks
 // p_i = t - ((t - i) mod S) with their window / chunked-local tests, and an
-// fp32 softmax.
+// fp32 softmax.  Two entries share one device body through a template flag:
 //
-// t is read through an int32 pointer, so one launch configuration serves
-// every decode step with no host read of t (the job the TPU kernel's
-// scalar prefetch did).
+// - repro_flash_decode_fwd (dynamic, `_fd_dyn_kernel`): t is read through
+//   an int32 pointer, so one launch configuration serves every decode step
+//   with no host read of t (the job the TPU kernel's scalar prefetch did);
+//   the cluster is sized from S and a ring cache is walked whole.
+// - repro_flash_decode_static_fwd (static, `_fd_kernel`, which bakes t in
+//   at trace time): t travels by value in the launch's parameter block, and
+//   the host, knowing t, passes the arc of live slots (first slot, count:
+//   `live_slots` in ops.py).  The blocks walk only that arc, and the
+//   cluster is sized from it, so a chunked-local ring of 8192 slots with
+//   101 live reads 101 slots, not 8192.
 //
-// Bound on this card: per step it reads 2 B S KV D cache elements and does
-// about 4 B H S D flops, under one flop per byte, so it is bound by bytes
-// (HBM at 3.35 TB/s).  At the serving shapes the cache is a few MB, so the
-// time goes to latency: the design keeps many loads in flight and launches
-// once.
+// Bound on this card: per step it must read 2 B n KV D cache elements (n
+// the live slots; the dynamic entry walks a whole ring, the static one only
+// the n) and do about 4 B H n D flops, under one flop per byte, so it is
+// bound by bytes (HBM at 3.35 TB/s).  At the serving shapes the
+// cache is a few MB, so the time goes to latency: the design keeps many
+// loads in flight and launches once.
 //
 // Design.  The Pallas kernel walks the cache sequentially with one program
 // per batch row.  Here the cache is cut into 32-slot chunks, and each
@@ -30,7 +37,12 @@
 // chunks move as 16-byte cp.async.cg copies (8 bf16 or 4 fp32 a thread)
 // into a ring of 2 chunk stages, the next chunk loading while this one is
 // used; the first is requested before t is read, so the read of t hides
-// under its latency.  A score is a dot product over the D / 8 (bf16)
+// under its latency.  The static entry cuts the arc of live slots instead
+// of the cache: its chunk c holds the arc's offsets 32c .. 32c + 31, each
+// row at slot (first + offset) mod S, so a ring's chunk may wrap from slot
+// S - 1 to 0 (a row is its own 16-byte copies either way), and only the
+// last chunk has rows past the arc.  Both keep the mask test on every row,
+// so an arc that is wrong by a slot still gives the exact masked answer.  A score is a dot product over the D / 8 (bf16)
 // lanes that hold one K row, reduced with shuffles.  The blocks' partial
 // (m, l, acc) stay in shared memory, and after a cluster barrier each
 // block combines a slice of the (head, d) outputs from every rank's
@@ -98,7 +110,8 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
-  const int* t;
+  const int* t;             // dynamic: the position on the device
+  int t_value, first, n_live;  // static: the position and the live arc
   int s, n_rep, nch;
   long long q_sb, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -129,7 +142,10 @@ int smem_bytes(int n_rep) {
   return ring_bytes<T, D>() + 4 * n_rep * (2 * D + CH + 3);
 }
 
-template <typename T, int D>
+// STATIC: t is p.t_value (p.t is never read) and the walk covers the arc of
+// p.n_live slots from p.first; else t is *p.t and the walk covers slots
+// 0 .. S - 1 (on a linear cache, the chunks up to t).
+template <typename T, int D, bool STATIC>
 __global__ void __launch_bounds__(NT) fd_cluster_kernel(Params p) {
   constexpr int VEC = 16 / static_cast<int>(sizeof(T));  // elements a copy
   constexpr int LPS = D / VEC;   // lanes per K row (2 .. 32)
@@ -159,7 +175,14 @@ __global__ void __launch_bounds__(NT) fd_cluster_kernel(Params p) {
 
   const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + g * p.k_sh;
   const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + g * p.v_sh;
-  auto load_chunk = [&](int i, int stage) {  // slots past S are zeroed
+  // the cache slot of walk offset j; offsets from `span` on are past the walk
+  const int span = STATIC ? p.n_live : p.s;
+  auto slot_of = [&](int j) {
+    if (!STATIC) return j;
+    const int slot = p.first + j;  // first < S and j < n_live <= S
+    return slot >= p.s ? slot - p.s : slot;
+  };
+  auto load_chunk = [&](int i, int stage) {  // rows past the walk are zeroed
     const int c0 = (rank + i * ncl) * CH;
     T* dk = sk + stage * CH * D;
     T* dv = sv + stage * CH * D;
@@ -167,8 +190,9 @@ __global__ void __launch_bounds__(NT) fd_cluster_kernel(Params p) {
     for (int x0 = 0; x0 < PIECES; x0 += NT) {
       const int x = x0 + tid;
       if (PIECES % NT != 0 && x >= PIECES) break;
-      const int r = x / LPS, c = (x % LPS) * VEC, slot = c0 + r;
-      const bool ok = slot < p.s;
+      const int r = x / LPS, c = (x % LPS) * VEC, j = c0 + r;
+      const bool ok = j < span;
+      const int slot = slot_of(ok ? j : 0);
       cp_async16(dk + r * D + c, ok ? kg + slot * p.k_ss + c : kg, ok);
       cp_async16(dv + r * D + c, ok ? vg + slot * p.v_ss + c : vg, ok);
     }
@@ -182,8 +206,9 @@ __global__ void __launch_bounds__(NT) fd_cluster_kernel(Params p) {
     if (i < all) load_chunk(i, i);
     cp_async_commit();
   }
-  const int t = *p.t;
-  const int nch = (!ring && t >= 0) ? min(p.nch, t / CH + 1) : p.nch;
+  const int t = STATIC ? p.t_value : *p.t;
+  const int nch =
+      (!STATIC && !ring && t >= 0) ? min(p.nch, t / CH + 1) : p.nch;
   const int mine = rank < nch ? (nch - rank + ncl - 1) / ncl : 0;
 
   const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h0 * p.q_sh;
@@ -219,8 +244,9 @@ __global__ void __launch_bounds__(NT) fd_cluster_kernel(Params p) {
       float kf[VEC];
 #pragma unroll
       for (int e = 0; e < VEC; ++e) kf[e] = to_f(kv[e]);
-      const int slot = c0 + r;
-      const bool ok = slot < p.s && slot_valid(p, slot, t);
+      const int j = c0 + r;
+      const bool in = j < span;
+      const bool ok = in && slot_valid(p, slot_of(j), t);
       for (int h = 0; h < n_rep; ++h) {
         const float* qh = sq + h * D + d0;
         float a = 0.f;
@@ -230,9 +256,9 @@ __global__ void __launch_bounds__(NT) fd_cluster_kernel(Params p) {
         for (int off = LPS / 2; off > 0; off >>= 1)
           a += __shfl_xor_sync(0xffffffffu, a, off);
         // masked: -1e30 (weight 1 while every slot so far is masked, as in
-        // a softmax over all -1e30 scores); past S: no weight at all
+        // a softmax over all -1e30 scores); past the walk: no weight at all
         if (tid % LPS == 0)
-          ss[h * CH + r] = slot >= p.s ? -INFINITY : (ok ? a : NEG_INF);
+          ss[h * CH + r] = !in ? -INFINITY : (ok ? a : NEG_INF);
       }
     }
     __syncthreads();
@@ -304,16 +330,16 @@ __global__ void __launch_bounds__(NT) fd_cluster_kernel(Params p) {
   cluster.sync();  // no block leaves while another still reads its memory
 }
 
-template <typename T, int D>
+template <typename T, int D, bool STATIC>
 int launch(Params p, int batch, int kv_heads, cudaStream_t stream) {
-  auto kernel = fd_cluster_kernel<T, D>;
+  auto kernel = fd_cluster_kernel<T, D, STATIC>;
   const int smem = smem_bytes<T, D>(p.n_rep);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  p.nch = (p.s + CH - 1) / CH;
+  p.nch = ((STATIC ? p.n_live : p.s) + CH - 1) / CH;
   const int ncl = p.nch < MAX_CLUSTER ? p.nch : MAX_CLUSTER;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ncl, kv_heads, batch);
@@ -332,16 +358,29 @@ int launch(Params p, int batch, int kv_heads, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool STATIC>
 int dispatch_d(const Params& p, int d, int batch, int kv_heads,
                cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(p, batch, kv_heads, stream);
-    case 32: return launch<T, 32>(p, batch, kv_heads, stream);
-    case 64: return launch<T, 64>(p, batch, kv_heads, stream);
-    case 128: return launch<T, 128>(p, batch, kv_heads, stream);
+    case 16: return launch<T, 16, STATIC>(p, batch, kv_heads, stream);
+    case 32: return launch<T, 32, STATIC>(p, batch, kv_heads, stream);
+    case 64: return launch<T, 64, STATIC>(p, batch, kv_heads, stream);
+    case 128: return launch<T, 128, STATIC>(p, batch, kv_heads, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <bool STATIC>
+int dispatch(const Params& p, int dtype, int d, int batch, int kv_heads,
+             void* stream) {
+  if (kv_heads <= 0 || p.s <= 0 || batch <= 0 || batch > 65535 ||
+      kv_heads > 65535 || p.n_rep <= 0 || p.n_rep * kv_heads > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_d<float, STATIC>(p, d, batch, kv_heads, st);
+  if (dtype == 1)
+    return dispatch_d<__nv_bfloat16, STATIC>(p, d, batch, kv_heads, st);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -360,17 +399,35 @@ int repro_flash_decode_fwd(
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_sh,
     float scale, int window, int local_block, void* stream) {
-  if (kv_heads <= 0 || heads % kv_heads != 0 || s <= 0 || batch <= 0 ||
-      batch > 65535 || kv_heads > 65535 || heads > 65535)
+  if (kv_heads <= 0 || heads % kv_heads != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q, k, v, o, static_cast<const int*>(t),
+  Params p{q, k, v, o, static_cast<const int*>(t), 0, 0, 0,
            s, heads / kv_heads, 0,
            q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh,
            scale, window, local_block};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_d<float>(p, d, batch, kv_heads, st);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16>(p, d, batch, kv_heads, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<false>(p, dtype, d, batch, kv_heads, stream);
+}
+
+// The same with the position t >= 0 by value and the arc of live slots the
+// host computed from it: n_live slots from slot `first`, wrapping past
+// S - 1 on a ring cache (0 < n_live <= S, 0 <= first < S).  Nothing is
+// read from the host or copied to the device besides the launch.
+int repro_flash_decode_static_fwd(
+    const void* q, const void* k, const void* v, void* o, int t, int first,
+    int n_live, int dtype, int batch, int s, int heads, int kv_heads, int d,
+    long long q_sb, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_sh,
+    float scale, int window, int local_block, void* stream) {
+  if (kv_heads <= 0 || heads % kv_heads != 0 || t < 0 || n_live <= 0 ||
+      n_live > s || first < 0 || first >= s)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Params p{q, k, v, o, nullptr, t, first, n_live,
+           s, heads / kv_heads, 0,
+           q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh,
+           scale, window, local_block};
+  return dispatch<true>(p, dtype, d, batch, kv_heads, stream);
 }
 
 const char* repro_flash_decode_error_string(int err) {

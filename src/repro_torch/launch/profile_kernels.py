@@ -22,6 +22,8 @@ CLI::
         --arch internlm2_1_8b --out build/profile.json
     PYTHONPATH=src python -m repro_torch.launch.profile_kernels \
         --arch hymba_1_5b --out build/profile_hymba.json
+    PYTHONPATH=src python -m repro_torch.launch.profile_kernels \
+        --reduced --device cpu --smoke     # batches (1, 2), quota 1.0, 1 rep
 """
 from __future__ import annotations
 
@@ -154,7 +156,11 @@ def main(argv=None) -> dict:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; 'cpu' to run there)")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--smoke", action="store_true",
+                    help="tiny lattice (batches 1,2; quota 1.0; 1 rep)")
     args = ap.parse_args(argv)
+    if args.smoke:
+        args.batches, args.quotas, args.reps = [1, 2], [1.0], 1
 
     from repro_torch.serving.executor import TorchExecutor
 

@@ -115,6 +115,23 @@ def test_sim_digest_unchanged_by_attached_executor(executor):
     assert digests[0] == digests[1]
 
 
+def test_profile_kernels_smoke_lattice(tmp_path):
+    """``--smoke``, as the reference's flag: batches (1, 2), quota 1.0 and
+    one rep, whatever the lattice flags say."""
+    from repro_torch.launch.profile_kernels import main
+    out = tmp_path / "profile.json"
+    art = main(["--reduced", "--device", "cpu", "--smoke", "--batches",
+                "4", "8", "--reps", "3", "--out", str(out)])
+    assert json.loads(out.read_text()) == art
+    assert art["schema"] == "repro.measured_profile.v1"
+    assert art["batch_lattice"] == [1, 2] and art["quota_lattice"] == [1.0]
+    assert [(c["batch"], c["quota"], c["reps"]) for c in art["cells"]] == [
+        (1, 1.0, 1), (2, 1.0, 1)]
+    assert all(c["e2e_ms"] > 0 for c in art["cells"])
+    assert art["quota_check"]["measured_exponent"] is None   # no q < 1
+    assert art["roofline"] == []                             # no card
+
+
 def test_executor_defaults_to_cuda():
     from repro_torch.serving.executor import TorchExecutor
     if torch.cuda.is_available():
