@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import wide
+from repro_torch.obs import tracer as obs_tracer
 
 
 def capacity(tokens_per_row: int, n_experts: int, top_k: int,
@@ -120,40 +121,46 @@ def moe_ffn(x, router_w, w1, w2, w3, *, n_experts: int, top_k: int,
             expert_parallel: bool = False):
     """x: (R, T, D); w1/w2: (E, D, F); w3: (E, F, D) (this rank's blocks
     on a ``split``).  Returns (out, aux_loss), out (R, T, D) in x's
-    dtype."""
+    dtype.  Inside a traced decode step the routing and the experts are
+    the profiler ranges ``repro.moe.route`` and ``repro.moe.experts``
+    (``obs.tracer.ranges``)."""
     r, t, d = x.shape
-    cap = capacity(t, n_experts, top_k, capacity_factor)
-    idx, valid, gate, aux, slot = _route(x, router_w, n_experts, top_k, cap)
-    n_loc = n_experts
-    if split is not None:
-        x, gate = split.copy_to(x), split.copy_to(gate)
-        if expert_parallel:
-            lo, hi = split.part(n_experts)
-            n_loc = hi - lo
-            idx, valid, gate = (a[:, lo:hi] for a in (idx, valid, gate))
-            # this rank's slots first, every other expert's the zero row
-            mine = (slot >= lo * cap) & (slot < hi * cap)
-            slot = torch.where(mine, slot - lo * cap,
-                               torch.full_like(slot, n_loc * cap))
+    rng = obs_tracer.ranges()
+    with rng("repro.moe.route"):
+        cap = capacity(t, n_experts, top_k, capacity_factor)
+        idx, valid, gate, aux, slot = _route(x, router_w, n_experts, top_k,
+                                             cap)
+        n_loc = n_experts
+        if split is not None:
+            x, gate = split.copy_to(x), split.copy_to(gate)
+            if expert_parallel:
+                lo, hi = split.part(n_experts)
+                n_loc = hi - lo
+                idx, valid, gate = (a[:, lo:hi] for a in (idx, valid, gate))
+                # this rank's slots first, every other expert's the zero row
+                mine = (slot >= lo * cap) & (slot < hi * cap)
+                slot = torch.where(mine, slot - lo * cap,
+                                   torch.full_like(slot, n_loc * cap))
 
-    # gather tokens into expert slots: (R, E, C, D)
-    xe = x.gather(1, idx.reshape(r, -1, 1).expand(-1, -1, d))
-    xe = torch.where(valid.reshape(r, -1, 1), xe, torch.zeros_like(xe))
-    xe = xe.reshape(r, n_loc, cap, d)
-    h = torch.einsum("recd,edf->recf", xe, w1) * F.silu(
-        torch.einsum("recd,edf->recf", xe, w2))
-    ye = torch.einsum("recf,efd->recd", h, w3)            # (R, E, C, D)
-    ye = ye * gate[..., None].to(ye.dtype)
+    with rng("repro.moe.experts"):
+        # gather tokens into expert slots: (R, E, C, D)
+        xe = x.gather(1, idx.reshape(r, -1, 1).expand(-1, -1, d))
+        xe = torch.where(valid.reshape(r, -1, 1), xe, torch.zeros_like(xe))
+        xe = xe.reshape(r, n_loc, cap, d)
+        h = torch.einsum("recd,edf->recf", xe, w1) * F.silu(
+            torch.einsum("recd,edf->recf", xe, w2))
+        ye = torch.einsum("recf,efd->recd", h, w3)        # (R, E, C, D)
+        ye = ye * gate[..., None].to(ye.dtype)
 
-    # combine by gather: token t reads slots slot[t * K + j], j < K, with
-    # a zero row appended for the overflow bin
-    ye = torch.cat([ye.reshape(r, n_loc * cap, d),
-                    ye.new_zeros(r, 1, d)], dim=1)
-    picked = ye.gather(1, slot.reshape(r, -1, 1).expand(-1, -1, d))
-    picked = picked.reshape(r, t, top_k, d)
-    out = picked[:, :, 0]
-    for j in range(1, top_k):
-        out = out + picked[:, :, j]
-    if split is not None:
-        out = split.reduce_from(out)
+        # combine by gather: token t reads slots slot[t * K + j], j < K,
+        # with a zero row appended for the overflow bin
+        ye = torch.cat([ye.reshape(r, n_loc * cap, d),
+                        ye.new_zeros(r, 1, d)], dim=1)
+        picked = ye.gather(1, slot.reshape(r, -1, 1).expand(-1, -1, d))
+        picked = picked.reshape(r, t, top_k, d)
+        out = picked[:, :, 0]
+        for j in range(1, top_k):
+            out = out + picked[:, :, j]
+        if split is not None:
+            out = split.reduce_from(out)
     return out.to(x.dtype), aux

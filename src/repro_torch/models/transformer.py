@@ -71,6 +71,7 @@ import torch.utils.checkpoint
 from repro_torch.configs.registry import ModelConfig
 from repro_torch.models import kvcache, moe
 from repro_torch.models import layers as L
+from repro_torch.obs import tracer as obs_tracer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -763,20 +764,34 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens,
                 opts: RunOptions = RunOptions()):
     """tokens: (B, 1) int.  Returns (logits (B, V) fp32, cache), each
     layer's cache written at slot ``t`` (full) or ``t mod W`` (ring) and
-    ``t`` advanced, in place."""
+    ``t`` advanced, in place.
+
+    Where the executor traces the task and a profiler records, the step's
+    parts are profiler ranges (``repro.embed``, ``repro.attn``,
+    ``repro.mlp``, inside it an MoE layer's ``repro.moe.route`` and
+    ``repro.moe.experts``, ``repro.head``); that is decided once a step
+    (``obs.tracer.step_ranges``), and otherwise each part enters a shared
+    null context."""
     _, m, kinds = macro_shape(cfg)
     t = cache["t"]
-    x = embed_tokens(cfg, params, tokens[:, :1], opts)
+    rng = obs_tracer.step_ranges()
+    with rng("repro.embed"):
+        x = embed_tokens(cfg, params, tokens[:, :1], opts)
     for idx, w in enumerate(unstack_layers(params, 2)):
         i, j = divmod(idx, m)
-        h = _norm(cfg, w, "ln1", x)
-        x = x + _attn_decode(cfg, w, h,
-                             *_layer_cache(cfg, cache, i, j, kinds[j]), t,
-                             kinds[j], opts)
-        x = x + _mlp(cfg, w, _norm(cfg, w, "ln2", x), opts)[0]
-    x = _norm(cfg, params, "final_norm", x)
-    logits = head_logits(cfg, x[:, 0], _head(cfg, params), opts)
-    t.add_(1)
+        with rng("repro.attn"):
+            h = _norm(cfg, w, "ln1", x)
+            x = x + _attn_decode(cfg, w, h,
+                                 *_layer_cache(cfg, cache, i, j, kinds[j]),
+                                 t, kinds[j], opts)
+        with rng("repro.mlp"):
+            x = x + _mlp(cfg, w, _norm(cfg, w, "ln2", x), opts)[0]
+    with rng("repro.head"):
+        x = _norm(cfg, params, "final_norm", x)
+        logits = head_logits(cfg, x[:, 0], _head(cfg, params), opts)
+        t.add_(1)
+    if rng is not obs_tracer.no_range:
+        obs_tracer.end_step()
     return logits, cache
 
 

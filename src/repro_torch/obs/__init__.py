@@ -33,9 +33,10 @@ from repro_torch.obs.audit import AuditLog, PlanRecord, RetryRecord, SkipRecord
 from repro_torch.obs.calibrate import ProfileCalibrator
 from repro_torch.obs.health import AlertRecord, HealthEngine
 from repro_torch.obs.metrics import COUNTER, GAUGE, HIST, MetricsBus
-from repro_torch.obs.tracer import SpanTracer
+from repro_torch.obs.tracer import SpanTracer, StepTracer
 
 __all__ = ["Recorder", "NullRecorder", "NULL_RECORDER", "SpanTracer",
+           "StepTracer",
            "MetricsBus", "AuditLog", "PlanRecord", "SkipRecord",
            "RetryRecord", "ProfileCalibrator", "HealthEngine",
            "AlertRecord"]

@@ -27,18 +27,33 @@ non-overlapping lanes (tids) so the file loads cleanly in
 
 Timestamps are *simulated* milliseconds, written as the microsecond
 ``ts``/``dur`` fields the format requires.
+
+:class:`StepTracer` is the real-compute path's counterpart: wall-clock
+spans of the executor's tasks and steps, stamped with ``time.time_ns``
+(the clock ``torch.profiler``'s events are on, so the spans lay over a
+profiled device trace) and exported under a process of their own, never
+mixed with simulated time.  The executor sets its tracer on the worker
+thread around each task (:func:`set_active`); a model step asks
+:func:`step_ranges`, once a step, whether its parts become profiler
+ranges.  With no tracer every site enters one shared null context.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
+import threading
+import time
 from typing import Any, Optional
 
 # pid layout: requests get 10000+uid, devices 100+idx — disjoint for any
 # realistic fleet, and stable across runs for diffable golden traces.
 REQUEST_PID_BASE = 10_000
 DEVICE_PID_BASE = 100
+# the wall clock's spans (StepTracer) get a process of their own
+WALL_PID = 1
+WALL_PROCESS = "wall clock (time.time_ns)"
 
 _US = 1e3   # ms -> us
 
@@ -256,3 +271,110 @@ class SpanTracer:
             json.dump(doc, f, indent=1, sort_keys=True, default=str)
             f.write("\n")
         return doc
+
+
+# ---- wall-clock spans of the real-compute path ------------------------------
+class _NullRange:
+    """A context that does nothing; every disabled site shares the one
+    instance."""
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+NULL_RANGE = _NullRange()
+
+
+def no_range(name: str, *_) -> _NullRange:
+    """The disabled counterpart of a range or span factory."""
+    return NULL_RANGE
+
+
+class _Thread(threading.local):
+    def __init__(self):
+        self.tracer = None      # StepTracer of the task running on this thread
+        self.ranges = no_range  # range factory of the model step running on it
+
+
+_thread = _Thread()
+
+
+def _profiling() -> bool:
+    """A profiler records on this thread (its own enabled check)."""
+    import torch
+    return torch._C._autograd._profiler_enabled()
+
+
+def _profiler_range():
+    """The profiler's range of a name: ``RecordFunctionFast``, a host
+    event like ``record_function``'s without its mirror on the device's
+    timeline and without its Python dispatch, at a fraction of its cost
+    to enter and leave."""
+    import torch
+    return torch._C._profiler._RecordFunctionFast
+
+
+class StepTracer:
+    """Wall-clock spans of the executor: ``(name, t0_ns, t1_ns, task,
+    step)`` tuples on ``time.time_ns``, materialised into Chrome-trace
+    events only at export.  While a profiler records on the thread, a span
+    is also a profiler range of the same name (:func:`_profiler_range`),
+    entered before its first stamp and left after its last."""
+
+    def __init__(self):
+        self.spans: list[tuple] = []
+
+    @contextlib.contextmanager
+    def span(self, name: str, task: int, step: int = 0):
+        mirror = _profiler_range()(name) if _profiling() else NULL_RANGE
+        with mirror:
+            t0 = time.time_ns()
+            try:
+                yield
+            finally:
+                self.spans.append((name, t0, time.time_ns(), task, step))
+
+    def events(self) -> list[dict]:
+        """Chrome-trace event dicts: the spans on the wall clock's process,
+        ``ts`` in microseconds since the epoch."""
+        out = SpanTracer()
+        out._procs[WALL_PID] = WALL_PROCESS
+        out._spans = [_Span(name, "task" if name == "repro.task" else "step",
+                            t0 / 1e6, t1 / 1e6, WALL_PID,
+                            {"task": task, "step": step})
+                      for name, t0, t1, task, step in self.spans]
+        return out.events()
+
+    export_chrome_trace = SpanTracer.export_chrome_trace
+
+
+def set_active(tracer: Optional[StepTracer]) -> None:
+    """Set, or clear with None, the tracer of the task this thread runs."""
+    _thread.tracer = tracer
+    _thread.ranges = no_range
+
+
+def step_ranges():
+    """The range factory of one model step, decided once a step: the
+    profiler's (:func:`_profiler_range`) where a tracer is set on this
+    thread and a profiler records on it, else :func:`no_range`.  The
+    step's callees read it through :func:`ranges`; a step that got the
+    profiler's factory hands back with :func:`end_step`."""
+    if _thread.tracer is None or not _profiling():
+        return no_range
+    _thread.ranges = _profiler_range()
+    return _thread.ranges
+
+
+def ranges():
+    """The range factory of the model step running on this thread."""
+    return _thread.ranges
+
+
+def end_step() -> None:
+    """Hand back the range factory a step got from :func:`step_ranges`."""
+    _thread.ranges = no_range

@@ -36,6 +36,16 @@ Design:
   cache and never syncs with the host.
 * **Async dispatch** — ``submit()`` enqueues onto a single worker thread
   and returns a future; ``drain()`` collects the records.
+* **Step spans** — with a ``tracer`` (``obs.tracer.StepTracer``) each
+  task leaves wall-clock spans on ``time.time_ns``: ``repro.task`` around
+  the whole task, ``repro.prefill`` (prefill and argmax, issued, not
+  waited for), one ``repro.decode`` a step (decode and argmax),
+  ``repro.sync`` around each wait for the device and ``repro.check``
+  around the finiteness check; the tracer is set on the worker thread
+  for the task, so a transformer's decode step opens its own profiler
+  ranges while a profiler records.  With no tracer each site enters a
+  shared null context: no clock read, no profiler range.  The records'
+  times stay on ``perf_counter``.
 
 Fractional compute quota q < 1 is emulated as ``round(1/q)`` serialized
 passes, as in the reference.  Wall times end in ``torch.cuda.synchronize``.
@@ -53,6 +63,7 @@ import torch
 from repro_torch.configs.registry import get_config, reduced as reduce_cfg
 from repro_torch.gpu import SLICES_PER_VGPU
 from repro_torch.models.model import RunOptions, get_model, resolve_device
+from repro_torch.obs import tracer as obs_tracer
 
 DEFAULT_BATCH_LATTICE = (1, 2, 4, 8)
 DEFAULT_QUOTAS = (1.0, 0.5, 0.25)
@@ -91,8 +102,10 @@ class TorchExecutor:
                  prompt_len: int = 32, gen_len: int = 4,
                  seed: int = 0, use_kernels: bool = True,
                  reduced: bool = False, n_layers: Optional[int] = None,
-                 dtype=torch.bfloat16, device=None):
+                 dtype=torch.bfloat16, device=None,
+                 tracer: Optional[obs_tracer.StepTracer] = None):
         self.device = resolve_device(device)
+        self.tracer = tracer             # spans of the tasks, or None
         self.arch = arch
         self.reduced = reduced
         cfg = get_config(arch)
@@ -195,35 +208,45 @@ class TorchExecutor:
             torch.cuda.synchronize(self.device)
 
     @torch.inference_mode()
-    def _run(self, bucket: int, quota: float) -> tuple[float, float]:
+    def _run(self, bucket: int, quota: float,
+             tracer: Optional[obs_tracer.StepTracer] = None,
+             tid: int = -1) -> tuple[float, float]:
         """One real serve of a bucket at a quota: prefill + gen_len greedy
-        decode steps, ``round(1/q)`` serialized passes.  Returns
+        decode steps, ``round(1/q)`` serialized passes, spanned into
+        ``tracer`` as task ``tid`` where one is given.  Returns
         (prefill_ms, decode_ms) wall components."""
         cell, _ = self._cell("prefill", bucket, quota)
         passes = max(int(round(1.0 / quota)), 1)
+        span = obs_tracer.no_range if tracer is None else tracer.span
         pre_ms = dec_ms = 0.0
         for _ in range(passes):
-            self._sync()
+            with span("repro.sync", tid):
+                self._sync()
             t0 = time.perf_counter()
-            logits, cache = self.model.prefill(
-                self.params, {"tokens": cell.tokens}, cache=cell.cache)
-            first = logits
-            nxt = cell.next_tokens
-            torch.argmax(logits, -1, keepdim=True, out=nxt)
-            self._sync()
-            t1 = time.perf_counter()
-            for _ in range(self.gen_len):
-                logits, cache = self.model.decode(self.params, cache, nxt)
+            with span("repro.prefill", tid):
+                logits, cache = self.model.prefill(
+                    self.params, {"tokens": cell.tokens}, cache=cell.cache)
+                first = logits
+                nxt = cell.next_tokens
                 torch.argmax(logits, -1, keepdim=True, out=nxt)
-            self._sync()
+            with span("repro.sync", tid):
+                self._sync()
+            t1 = time.perf_counter()
+            for i in range(self.gen_len):
+                with span("repro.decode", tid, i):
+                    logits, cache = self.model.decode(self.params, cache, nxt)
+                    torch.argmax(logits, -1, keepdim=True, out=nxt)
+            with span("repro.sync", tid):
+                self._sync()
             t2 = time.perf_counter()
             pre_ms += (t1 - t0) * 1e3
             dec_ms += (t2 - t1) * 1e3
             self.prefill_passes += 1
             self.decode_steps += self.gen_len
-            if not (torch.isfinite(first).all()
-                    and torch.isfinite(logits).all()):
-                self.nonfinite += 1
+            with span("repro.check", tid):
+                if not (torch.isfinite(first).all()
+                        and torch.isfinite(logits).all()):
+                    self.nonfinite += 1
         return pre_ms, dec_ms
 
     def bucket_of(self, n: int) -> int:
@@ -256,14 +279,24 @@ class TorchExecutor:
             self.cache_misses += 1
         tid, func, stage = task.tid, task.func, task.stage
 
-        def work() -> ExecRecord:
-            pre, dec = self._run(bucket, quota)
+        def record(pre: float, dec: float) -> ExecRecord:
             rec = ExecRecord(tid=tid, func=func, stage=stage,
                              n_jobs=n_jobs, bucket=bucket, quota=quota,
                              wall_ms=pre + dec, prefill_ms=pre,
                              decode_ms=dec, cache_hit=hit)
             self.records.append(rec)
             return rec
+
+        def work() -> ExecRecord:
+            tracer = self.tracer
+            if tracer is None:
+                return record(*self._run(bucket, quota))
+            obs_tracer.set_active(tracer)
+            try:
+                with tracer.span("repro.task", tid):
+                    return record(*self._run(bucket, quota, tracer, tid))
+            finally:
+                obs_tracer.set_active(None)
 
         fut = self._pool.submit(work)
         self._futures[tid] = fut
