@@ -44,7 +44,9 @@ Phases, in order; any failure raises and the exit code is nonzero:
    set to 0 just before and read just after, and the run's invariants
    asserted: each kernel of the path launched once per layer per prefill
    pass or decode step, every other kernel (for Hymba, every kernel) not
-   at all; Mixtral's peak memory leaves MIN_FREE_GIB of the card free;
+   at all, every decode step after warm-up replayed from the bucket's
+   CUDA graph (the graphs and the peak memory logged); Mixtral's peak
+   memory leaves MIN_FREE_GIB of the card free;
    then the cut Mixtral on a prompt of 4160 tokens and 4 decode steps
    (ring slots, decode writes and finite logits gated; the bf16 distance
    from the plain path and the differing expert routes reported), and
@@ -1114,6 +1116,9 @@ def serve(torch, arch: str, cfg, counters: dict, per_step: dict,
         "one executor record per dispatched task":
             executed == ex["executed"] == bench["dispatched_tasks"] > 0,
         "post-warmup hit rate 1.0": ex["post_warmup_hit_rate"] == 1.0,
+        "every decode step after warm-up replayed from a CUDA graph":
+            ex["graph_steps"]
+            == ex["decode_steps"] - ex["warmup_decode_steps"] > 0,
         "served at the asked depth": ex["n_layers"] == cfg.n_layers,
     }
     for name in counters:
@@ -1137,7 +1142,9 @@ def serve(torch, arch: str, cfg, counters: dict, per_step: dict,
         f"{tel['injected']} requests ({tel['completed']} done, "
         f"{tel['shed']} shed), {bench['dispatched_tasks']} tasks, "
         f"{ex['prefill_passes']} prefill passes, {ex['decode_steps']} "
-        f"decode steps, launches {launches}")
+        f"decode steps ({ex['warmup_decode_steps']} in warm-up, "
+        f"{ex['graph_steps']} replayed from {ex['graph_captures']} CUDA "
+        f"graphs), launches {launches}")
     log(f"[serve] {arch} ({cfg.n_layers} layers) "
         f"slo_attainment={tel['slo_attainment']:.4f} "
         f"mean_abs_err={bench['mean_abs_err']:.4f} "
@@ -1213,7 +1220,10 @@ def mixtral_long_prompt(torch, mcfg, counters: dict) -> dict:
             for i in range(s, s + LONG_DECODE):
                 before = cache["k"].clone()
                 t = int(cache["t"])
-                lg, cache = model.decode(params, cache, toks[:, i:i + 1])
+                # the eager step: the routes are recorded on the host
+                # inside it, which a replayed CUDA graph would not do
+                lg, cache = model.decode_step(params, cache,
+                                              toks[:, i:i + 1])
                 slots = (cache["k"] != before).any(-1).any(-1).any(2)
                 written.append((t, slots.nonzero()[:, 2].unique().tolist(),
                                 int(slots.sum())))
@@ -1774,7 +1784,8 @@ def shard_phase(torch, counters: dict, smi: str, trainer_losses) -> dict:
         step_ms.append((time.perf_counter() - t0) * 1e3)
         logits = logits.full_tensor()
         t0 = time.perf_counter()
-        ref, _ = plain.decode(params, state, nxt)
+        # a fresh state every step: the eager step, no graph to capture
+        ref, _ = plain.decode_step(params, state, nxt)
         torch.cuda.synchronize()
         plain_ms.append((time.perf_counter() - t0) * 1e3)
         errs.append(_gate(torch, "shard serve logits", logits, ref,
@@ -1944,7 +1955,8 @@ def shard_rwkv6(torch, counters: dict, smi: str, mesh, put) -> dict:
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         logits = logits.full_tensor()
-        ref, state = plain.decode(params, state, nxt)
+        # a fresh state every step: the eager step, no graph to capture
+        ref, state = plain.decode_step(params, state, nxt)
         errs.append(_gate(torch, f"shard {RWKV_ARCH} serve logits", logits,
                           ref, BF16_TOL))
         for k, v in sh_cache.items():

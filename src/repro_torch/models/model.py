@@ -16,6 +16,11 @@ Batches are dicts: {"tokens": (B, S) int, ["labels": (B, S) int],
 ["prefix_embeds": (B, P, D)]}.  Every family of the zoo runs: the
 transformer families (dense, moe, vlm, audio), rwkv6 (ssm) and hymba
 (hybrid).
+
+``decode`` replays each set of buffers' step from a CUDA graph where
+``decode_graph.why_eager`` allows it (plain CUDA tensors, no mesh, no
+autograd), else runs the family's ``decode_step``; ``graphs`` counts the
+captures and replays.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.registry import ModelConfig, ShapeSpec
-from repro_torch.models import hymba, rwkv6, transformer
+from repro_torch.models import decode_graph, hymba, rwkv6, transformer
 from repro_torch.models.transformer import RunOptions
 
 
@@ -55,6 +60,7 @@ class Model:
         self.opts = opts
         self.device = resolve_device(device)
         self._m = _family_module(cfg)
+        self.graphs = decode_graph.DecodeGraphs()
 
     # ---- params -----------------------------------------------------------
     def param_specs(self):
@@ -88,6 +94,12 @@ class Model:
         return x
 
     def decode(self, params, cache, tokens):
+        if decode_graph.why_eager(self.opts, params, cache, tokens) is None:
+            return self.graphs(self.decode_step, params, cache, tokens)
+        return self.decode_step(params, cache, tokens)
+
+    def decode_step(self, params, cache, tokens):
+        """One eager decode step (what a graph of :meth:`decode` holds)."""
         return self._m.decode_step(self.cfg, params, cache, tokens, self.opts)
 
     # ---- caches -----------------------------------------------------------

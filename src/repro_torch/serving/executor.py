@@ -34,6 +34,11 @@ Design:
   step updates it in place (a transformer writes slot ``t``, Hymba slot
   ``t mod W``, with ``t`` on the device), so the decode loop allocates no
   cache and never syncs with the host.
+* **Decode graphs** — ``Model.decode`` replays each bucket's decode step
+  from a CUDA graph captured at the bucket's first step
+  (``models/decode_graph.py``), on the card; ``warmup()`` captures every
+  bucket, so the served steps only replay.  ``graph_steps`` counts the
+  decode steps replayed since warm-up, ``graph_captures`` the graphs.
 * **Async dispatch** — ``submit()`` enqueues onto a single worker thread
   and returns a future; ``drain()`` collects the records.
 * **Step spans** — with a ``tracer`` (``obs.tracer.StepTracer``) each
@@ -152,6 +157,8 @@ class TorchExecutor:
         self.cache_misses = 0        # submit()-time cache misses
         self.prefill_passes = 0      # model prefill calls
         self.decode_steps = 0        # model decode calls
+        self.warmup_decode_steps = 0  # ... by the end of warmup()
+        self._warm_replays = 0       # graph replays during warmup()
         self.nonfinite = 0           # passes whose logits were not finite
         self._warmed = False
         self._pool = ThreadPoolExecutor(max_workers=1)
@@ -196,6 +203,8 @@ class TorchExecutor:
                 self._cell("decode", bucket, quota)
             self._run(bucket, 1.0)     # execute once: warm the allocator
         self.warmup_compiles = self.compiles - before
+        self.warmup_decode_steps = self.decode_steps
+        self._warm_replays = self.model.graphs.replays
         self._warmed = True
         self.cache_hits = self.cache_misses = 0
         return {"warmup_compiles": self.warmup_compiles,
@@ -346,5 +355,8 @@ class TorchExecutor:
             "executed": len(self.records),
             "prefill_passes": self.prefill_passes,
             "decode_steps": self.decode_steps,
+            "warmup_decode_steps": self.warmup_decode_steps,
+            "graph_steps": self.model.graphs.replays - self._warm_replays,
+            "graph_captures": self.model.graphs.captures,
             "nonfinite_passes": self.nonfinite,
         }
